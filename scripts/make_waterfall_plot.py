@@ -50,7 +50,7 @@ def main():
                 runs[label] = rows
     out = plot_waterfall(
         runs, os.path.join(ART, "waterfalls.png"),
-        title="FER waterfalls (TPU, min-sum a=0.75)")
+        title="FER waterfalls (min-sum a=0.75)")
     print("wrote", out, f"({len(runs)} curves)")
 
 

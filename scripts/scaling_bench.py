@@ -5,8 +5,8 @@ Launches N localhost processes (1 virtual CPU device each) joined by
 jax.distributed into one global 'mc' mesh, runs a fixed number of
 sharded MC steps of the judged code, and reports aggregate frames/s.
 This measures the DP path end to end (per-device PRNG folding, sharded
-decode, cross-process psum of counters) — the achievable proxy for pod
-scaling in a TPU-less environment.
+decode, cross-process psum of counters) — a proxy for multi-host
+scaling on one machine.
 
 Caveats recorded with the numbers: the box has few physical cores and
 XLA-CPU already multithreads inside one process, so process-scaling

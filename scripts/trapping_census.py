@@ -1,7 +1,7 @@
 """Trapping-set census of the nr2_r15_z64 floor regime (VERDICT r4 #4).
 
 Measures, rather than asserts, the mechanism behind the rate-1/5
-slope shallowing past 1.2 dB (BASELINE.md nr2 section): harvest
+slope shallowing past 1.2 dB (the nr2 waterfall): harvest
 failed frames at the punctured operating condition over 1.2-1.6 dB,
 classify residual-error supports into (a, b) classes
 (codes/trapping.py), and report the dominant classes, their
@@ -11,11 +11,10 @@ certificate.
 
 Writes artifacts/nr2_trapping_census.json (atomic).
 
-Run (TPU strongly preferred — the fused kernel harvests ~100x faster
-than the native CPU decoder at this n; falls back to native if the
-backend is CPU):
+Run (a GPU strongly preferred: the decoder the backend policy picks
+there harvests far faster than the native CPU decoder at this n; on a
+CPU backend the native decoder harvests):
     timeout 3600 python scripts/trapping_census.py
-One TPU process at a time.
 """
 
 import json
@@ -30,7 +29,7 @@ sys.path.insert(0, REPO)
 
 OUT = os.path.join(REPO, "artifacts", "nr2_trapping_census.json")
 
-# operating points: the floor regime the BASELINE claim describes
+# operating points: the floor regime
 # (punctured-channel FER 3.3e-3 / 1.7e-3 / 6.3e-4)
 POINTS = [(1.2, 150), (1.4, 120), (1.6, 80)]  # (Eb/N0 dB, target info-wrong)
 ITERS = 50
@@ -46,14 +45,16 @@ def main():
     from tpu_ldpc.codes.nrlike import nrlike_code
     from tpu_ldpc.codes.trapping import census, harvest_failures
 
-    code = nrlike_code("1/5", 64, bg=2)
-    on_tpu = jax.default_backend() == "tpu"
-    decode = None
-    if on_tpu:
-        from tpu_ldpc.decode.pallas_bp import build_pallas_decoder
+    from tpu_ldpc import backend
+    from tpu_ldpc.decode.api import build_decode_fn
+    from tpu_ldpc.sim.mc import DecodeCfg
 
-        dec = build_pallas_decoder(code, algo="minsum", iters=ITERS,
-                                   alpha=ALPHA, early_stop=True)
+    backend.use_compile_cache()
+    code = nrlike_code("1/5", 64, bg=2)
+    decode = None
+    if backend.on_gpu():
+        dec = build_decode_fn(code, DecodeCfg(algo="minsum", iters=ITERS,
+                                              alpha=ALPHA))
 
         def decode(llr):
             return [np.asarray(a) for a in jax.block_until_ready(
@@ -62,7 +63,7 @@ def main():
     res = {"date": time.strftime("%Y-%m-%d %H:%M"), "cell": code.name,
            "n": code.n, "k": code.k, "channel": "punctured (first 2Z)",
            "iters": ITERS, "alpha": ALPHA,
-           "backend": jax.default_backend(), "points": []}
+           "backend": backend.platform(), "points": []}
     for ebn0, target in POINTS:
         t0 = time.time()
         last = [0]

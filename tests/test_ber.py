@@ -145,9 +145,10 @@ def test_steps_per_call_grouping_invariant():
 
 
 def test_judged_waterfall_fixture_consistency():
-    """Frozen TPU sweep fixture (SURVEY §4.8): sanity-check shape and
-    anchors.  (Bit-level regression is re-asserted on TPU by re-running
-    the sweep with the same seeds; on CPU we check the frozen curve.)"""
+    """Frozen sweep fixture (SURVEY §4.8): sanity-check shape and
+    anchors.  (On a GPU, chip_smoke.py re-runs the sweep with the same
+    seeds and checks its FER against this fixture's interval; on CPU we
+    check the frozen curve.)"""
     import os
 
     from tpu_ldpc.report.waterfall import load_csv
@@ -163,7 +164,7 @@ def test_judged_waterfall_fixture_consistency():
     # monotone decreasing
     xs = sorted(fer)
     assert all(fer[a] >= fer[b] for a, b in zip(xs, xs[1:]))
-    # literature-envelope anchors (BASELINE.md): FER ~1e-2 around 1.5-2 dB,
+    # literature-envelope anchors: FER ~1e-2 around 1.5-2 dB,
     # <= 1e-3 by 2.5 dB, no Shannon violation (FER must be high at 0.2 dB
     # equivalent -- here: high FER at 1.0 dB)
     assert fer[1.0] > 0.3

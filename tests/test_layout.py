@@ -48,8 +48,8 @@ def test_degrees_match_base(code):
 
 def test_vmem_estimate_monotone(code):
     lay = code.layout
-    assert lay.vmem_bytes(256) == 2 * lay.vmem_bytes(128)
-    assert lay.vmem_bytes(128) > 0
+    assert lay.state_bytes(256) == 2 * lay.state_bytes(128)
+    assert lay.state_bytes(128) > 0
 
 
 def test_layout_frozen(code):

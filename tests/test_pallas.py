@@ -1,8 +1,8 @@
-"""Pallas kernel vs golden (SURVEY.md §4.2): interpret mode on CPU.
+"""GPU kernel (decode/pallas_bp.py) vs golden: Pallas interpreter on CPU.
 
-The fused kernel runs under interpret=True here (the TPU-native analog
-of a sanitizer build, §5) and must be bit-exact against the golden
-float32 min-sum on bits, ok flags, AND iters_used.
+The Triton kernel runs under interpret=True here and must be bit-exact
+against the golden float32 min-sum on bits, ok flags AND iters_used.
+The `gpu`-marked tests repeat the contract on a card.
 """
 
 import numpy as np
@@ -29,6 +29,11 @@ def noisy_llrs(code, batch, ebn0_db, seed):
     return (2.0 / sigma2 * y).astype(np.float32), u
 
 
+def _assert_same(got, want):
+    for g, w in zip(got, want):
+        assert (np.asarray(g) == np.asarray(w)).all()
+
+
 @pytest.mark.parametrize("schedule", ["flooding", "layered"])
 @pytest.mark.parametrize(
     "alpha,beta", [
@@ -40,18 +45,15 @@ def noisy_llrs(code, batch, ebn0_db, seed):
 def test_minsum_bitexact(schedule, alpha, beta):
     code = toy_code()
     llr, _ = noisy_llrs(code, 40, 3.0, seed=5)
-    gb, gok, git = golden_decode(
+    golden = golden_decode(
         code.H, llr, algo="minsum", iters=12, alpha=alpha, beta=beta,
         schedule=schedule, dtype=np.float32,
     )
     fn = build_pallas_decoder(
         code, algo="minsum", iters=12, alpha=alpha, beta=beta,
-        schedule=schedule, batch_tile=128, interpret=True,
+        schedule=schedule, interpret=True,
     )
-    pb, pok, pit = map(np.asarray, fn(llr))
-    assert (pb == gb).all()
-    assert (pok == gok).all()
-    assert (pit == git).all()
+    _assert_same(fn(llr), golden)
 
 
 @pytest.mark.parametrize("schedule", ["flooding", "layered"])
@@ -66,9 +68,10 @@ def test_minsum_no_early_stop(schedule):
         code, algo="minsum", iters=12, schedule=schedule,
         early_stop=False, interpret=True,
     )
-    pb, pok, _ = map(np.asarray, fn(llr))
+    pb, pok, pit = map(np.asarray, fn(llr))
     assert (pb == gb).all()
     assert (pok == gok).all()
+    assert (pit == 12).all()
 
 
 def test_sumproduct_agrees():
@@ -83,11 +86,11 @@ def test_sumproduct_agrees():
 
 
 def test_batch_padding():
-    """Non-multiple-of-tile batches: padded lanes must not leak."""
+    """Non-multiple-of-tile batches: padded codewords must not leak."""
     code = toy_code()
     llr, _ = noisy_llrs(code, 40, 3.0, seed=9)
-    fn = build_pallas_decoder(code, algo="minsum", iters=10,
-                              batch_tile=128, interpret=True)
+    fn = build_pallas_decoder(code, algo="minsum", iters=10, tile=8,
+                              interpret=True)
     b40 = [np.asarray(v) for v in fn(llr)]
     b7 = [np.asarray(v) for v in fn(llr[:7])]
     for a, b in zip(b40, b7):
@@ -95,74 +98,55 @@ def test_batch_padding():
 
 
 def test_exit_block_invariance():
-    """Early-exit granularity must not change any output."""
+    """A tile exits when all its codewords converge; where the exits fall
+    (tiles of 1, 2 or 8 codewords) must not change any output."""
     code = toy_code()
     llr, _ = noisy_llrs(code, 40, 3.0, seed=11)
-    outs = []
-    for g in (1, 3, 50):
-        fn = build_pallas_decoder(code, algo="minsum", iters=12,
-                                  exit_block=g, interpret=True)
-        outs.append([np.asarray(v) for v in fn(llr)])
-    for o in outs[1:]:
-        for a, b in zip(outs[0], o):
-            assert (a == b).all()
+    golden = golden_decode(code.H, llr, algo="minsum", iters=12,
+                           dtype=np.float32)
+    for tile in (1, 2, 8):
+        fn = build_pallas_decoder(code, algo="minsum", iters=12, tile=tile,
+                                  interpret=True)
+        _assert_same(fn(llr), golden)
 
 
-def test_vmem_budget_rejects_huge_code():
-    """Codes whose state exceeds VMEM must raise (api falls back to jnp)."""
-    B = make_base_graph(12, 24, 512, seed=3)
-    big = LdpcCode.from_base_graph(B, 512, "huge")
-    with pytest.raises(NotImplementedError):
-        build_pallas_decoder(big, batch_tile=128, interpret=True)
+@pytest.mark.parametrize("schedule", ["flooding", "layered"])
+def test_tile_size_invariance(schedule):
+    """Without early stop too, the tile size changes no output bit."""
+    code = toy_code()
+    llr, _ = noisy_llrs(code, 16, 2.5, seed=12)
+    outs = [build_pallas_decoder(code, iters=9, schedule=schedule,
+                                 early_stop=False, tile=t,
+                                 interpret=True)(llr) for t in (1, 4)]
+    _assert_same(outs[0], outs[1])
 
 
 def test_wider_lift_bitexact():
     """Z=27-style odd lift (wifi family) through the kernel."""
     code = LdpcCode.from_family("wifi", "2/3", 27)
     llr, _ = noisy_llrs(code, 16, 3.0, seed=13)
-    gb, gok, git = golden_decode(
+    golden = golden_decode(
         code.H, llr, algo="minsum", iters=6, dtype=np.float32
     )
-    fn = build_pallas_decoder(code, algo="minsum", iters=6,
-                              batch_tile=128, interpret=True)
-    pb, pok, pit = map(np.asarray, fn(llr))
-    assert (pb == gb).all()
-    assert (pok == gok).all()
-    assert (pit == git).all()
+    fn = build_pallas_decoder(code, algo="minsum", iters=6, interpret=True)
+    _assert_same(fn(llr), golden)
 
 
-@pytest.mark.deep  # kept-negative path (bf16 measured slower, BASELINE.md)
-def test_bf16_message_mode():
-    """Quantized (bf16 R) mode: not bit-exact by contract, but decisions
-    agree with f32 at operating SNR on this toy batch."""
-    import jax.numpy as jnp
-
-    code = toy_code()
-    llr, _ = noisy_llrs(code, 64, 4.0, seed=31)
-    f32 = build_pallas_decoder(code, algo="minsum", iters=15,
-                               interpret=True)
-    bf16 = build_pallas_decoder(code, algo="minsum", iters=15,
-                                interpret=True, msg_dtype=jnp.bfloat16)
-    b1, ok1, _ = map(np.asarray, f32(llr))
-    b2, ok2, _ = map(np.asarray, bf16(llr))
-    assert (b1 == b2).all(axis=1).mean() >= 0.97
-    assert (ok1 == ok2).mean() >= 0.97
-
-
-@pytest.mark.deep  # kept-negative path (compressed state measured slower)
-def test_compressed_row_state_bitexact():
-    """Compressed per-row message state reconstructs R exactly."""
-    code = toy_code()
-    llr, _ = noisy_llrs(code, 40, 3.0, seed=41)
-    gb, gok, git = golden_decode(
-        code.H, llr, algo="minsum", iters=12, dtype=np.float32
-    )
-    fn = build_pallas_decoder(code, algo="minsum", iters=12,
-                              interpret=True, compressed=True)
-    pb, pok, pit = map(np.asarray, fn(llr))
-    assert (pb == gb).all()
-    assert (pok == gok).all()
-    assert (pit == git).all()
+@pytest.mark.parametrize("family,rate,Z", [
+    ("wifi", "1/2", 27), ("wifi", "1/2", 81), ("wimax", "5/6", 96),
+])
+def test_non_pow2_lift_bitexact(family, rate, Z):
+    """Lifts that are not powers of two are padded to the next one
+    (27 -> 32, 81 -> 128, 96 -> 128): pad rows must never reach a real
+    min, sign product or syndrome, on either schedule."""
+    code = LdpcCode.from_family(family, rate, Z)
+    llr, _ = noisy_llrs(code, 8, 2.5, seed=Z)
+    for schedule in ("flooding", "layered"):
+        golden = golden_decode(code.H, llr, algo="minsum", iters=5,
+                               schedule=schedule, dtype=np.float32)
+        fn = build_pallas_decoder(code, iters=5, schedule=schedule,
+                                  interpret=True)
+        _assert_same(fn(llr), golden)
 
 
 def test_sc_code_bitexact():
@@ -177,144 +161,82 @@ def test_sc_code_bitexact():
     # chain is rank-deficient — see the pivot encoder tests)
     rng = np.random.default_rng(7)
     llr = rng.normal(scale=4.0, size=(24, code.n)).astype(np.float32)
-    gb, gok, git = golden_decode(code.H, llr, algo="minsum", iters=12,
-                                 dtype=np.float32)
+    golden = golden_decode(code.H, llr, algo="minsum", iters=12,
+                           dtype=np.float32)
     fn = build_pallas_decoder(code, iters=12, interpret=True)
-    pb, pok, pit = map(np.asarray, fn(llr))
-    assert (pb == gb).all() and (pok == gok).all() and (pit == git).all()
+    _assert_same(fn(llr), golden)
 
 
-@pytest.mark.parametrize(
-    "early_stop", [pytest.param(True, marks=pytest.mark.deep), False])
-def test_rescaled_bitexact(early_stop):
-    """min-sum-rescaled contract (golden/decoder.py decode() docstring):
-    kernel == golden rescaled on bits/ok/iters_used, and the rescaled
-    outputs match the STANDARD contract on this batch (the fp-rounding
-    differences the contract allows are statistically invisible)."""
+def test_negative_zero_llr_is_positive():
+    """-0.0 channel LLRs (punctured positions scaled by a 0 mask) decide
+    and vote as positive, as in golden: the kernel takes signs from
+    `x < 0`, not from the sign bit."""
     code = toy_code()
-    llr, _ = noisy_llrs(code, 40, 3.0, seed=5)
-    gb, gok, git = golden_decode(
-        code.H, llr, algo="minsum", iters=17, alpha=0.75,
-        early_stop=early_stop, dtype=np.float32, rescaled=True,
-    )
-    fn = build_pallas_decoder(code, algo="minsum", iters=17, alpha=0.75,
-                              early_stop=early_stop, rescaled=True,
-                              interpret=True)
-    pb, pok, pit = map(np.asarray, fn(llr))
-    assert (pb == gb).all()
-    assert (pok == gok).all()
-    assert (pit == git).all()
-    sb, sok, sit = golden_decode(
-        code.H, llr, algo="minsum", iters=17, alpha=0.75,
-        early_stop=early_stop, dtype=np.float32,
-    )
-    assert (gb == sb).all(axis=1).mean() >= 0.97
-    assert (gok == sok).mean() >= 0.97
+    llr, _ = noisy_llrs(code, 16, 3.0, seed=21)
+    llr[:, :8] = -0.0
+    golden = golden_decode(code.H, llr, algo="minsum", iters=8,
+                           dtype=np.float32)
+    fn = build_pallas_decoder(code, iters=8, interpret=True)
+    _assert_same(fn(llr), golden)
 
 
-@pytest.mark.deep  # redundant axis: generic rescaled contract covered above
-def test_rescaled_judged_code_bitexact():
-    """Full-size judged code through the rescaled kernel (kept-negative
-    option, ~4% slower than the standard headline kernel — BASELINE.md
-    r2): bit-exact vs golden rescaled at 50 iterations."""
-    code = LdpcCode.judged()
-    llr, _ = noisy_llrs(code, 8, 2.0, seed=17)
-    gb, gok, git = golden_decode(
-        code.H, llr, algo="minsum", iters=50, alpha=0.75,
-        early_stop=False, dtype=np.float32, rescaled=True,
-    )
-    fn = build_pallas_decoder(code, algo="minsum", iters=50, alpha=0.75,
-                              early_stop=False, rescaled=True,
-                              interpret=True)
-    pb, pok, _ = map(np.asarray, fn(llr))
-    assert (pb == gb).all()
-    assert (pok == gok).all()
+def test_capacity_rule():
+    """The kernel refuses a code whose one-codeword state exceeds one
+    SM's memory, and takes the codes of the registry."""
+    from tpu_ldpc.decode import pallas_bp
 
-
-def test_rescaled_rejects_unsupported():
-    """The rescaled contract is flooding min-sum, beta=0, float only."""
-    code = toy_code()
-    for kw in (
-        dict(algo="sumproduct"),
-        dict(schedule="layered"),
-        dict(beta=0.1),
-        dict(compressed=True),
-        dict(quant_bits=6),
-        dict(iters=300),
-    ):
-        with pytest.raises(ValueError):
-            build_pallas_decoder(code, rescaled=True, interpret=True,
-                                 **{"iters": 10, **kw})
+    big = LdpcCode.from_base_graph(make_base_graph(12, 24, 512, seed=3),
+                                   512, "huge")
+    assert big.layout.state_bytes(1) > pallas_bp.STATE_BUDGET_BYTES
+    assert not pallas_bp.fits(big)
     with pytest.raises(ValueError):
-        golden_decode(code.H, np.zeros((1, code.n), np.float32),
-                      algo="minsum", schedule="layered", rescaled=True)
+        build_pallas_decoder(big, interpret=True)
+    for code in (LdpcCode.judged(), LdpcCode.from_family("wifi", "1/2", 81),
+                 LdpcCode.from_family("wimax", "5/6", 96)):
+        assert pallas_bp.fits(code)
+        # Z padded to a power of two: 81 -> 128
+        Zp = 1 << (code.Z - 1).bit_length()
+        assert code.layout.state_bytes(1) == (
+            (code.layout.E + 2 * code.layout.nb) * Zp * 4)
 
 
-def test_rescaled_extreme_magnitude_stress():
-    """The rescaled contract grows magnitudes by alpha^-k (~1e15 at
-    iters=120): adversarially large finite LLRs through the full
-    allowed iteration range stay bit-exact vs golden (no overflow, no
-    precision surprise beyond the contract's own rounding)."""
+def test_unsupported_modes_rejected():
+    """Fixed-point and sumproduct-fast are the XLA path's; the kernel
+    builder refuses them instead of running something else."""
     code = toy_code()
-    rng = np.random.default_rng(3)
-    llr = (rng.choice([-60.0, -1e-3, 1e-3, 60.0], size=(16, code.n))
-           * rng.uniform(0.5, 1.0, size=(16, code.n))).astype(np.float32)
-    gb, gok, git = golden_decode(
-        code.H, llr, algo="minsum", iters=120, alpha=0.75,
-        early_stop=True, dtype=np.float32, rescaled=True,
-    )
-    assert np.isfinite(gb).all()
-    fn = build_pallas_decoder(code, algo="minsum", iters=120, alpha=0.75,
-                              early_stop=True, rescaled=True,
-                              interpret=True)
-    pb, pok, pit = map(np.asarray, fn(llr))
-    assert (pb == gb).all()
-    assert (pok == gok).all()
-    assert (pit == git).all()
+    with pytest.raises(ValueError):
+        build_pallas_decoder(code, algo="sumproduct-fast", interpret=True)
+    with pytest.raises(TypeError):
+        build_pallas_decoder(code, quant_bits=6, interpret=True)
+    with pytest.raises(ValueError):
+        build_pallas_decoder(code, tile=3, interpret=True)
 
 
-def test_vmem_overrun_drops_normalization_first(monkeypatch):
-    """When the normalization L scratch ALONE pushes a code over the
-    VMEM budget, the builder drops normalization (bit-exact relabeling,
-    ~5% perf) instead of rejecting — the nr1_r12_z64 case (r4)."""
-    import tpu_ldpc.decode.pallas_bp as pb
-
+def test_no_interpret_unless_asked():
+    """Off a GPU, the kernel without interpret=True raises: nothing
+    falls back to the interpreter on its own."""
     code = toy_code()
-    base = code.layout.vmem_bytes(128)
-    scratch = code.layout.nb * code.layout.Z * 4 * 128
-    # budget admits the bare state but not state+scratch
-    monkeypatch.setattr(pb, "VMEM_BUDGET_BYTES", base + scratch // 2)
-    dec = pb.build_pallas_decoder(code, iters=3, interpret=True)
-    llr, _ = noisy_llrs(code, 8, 3.0, seed=9)
-    bits, ok, iu = dec(llr)
-    assert np.asarray(bits).shape == (8, code.n)
-    # a genuine overrun (bare state too big) still rejects
-    monkeypatch.setattr(pb, "VMEM_BUDGET_BYTES", base - 1)
-    with pytest.raises(NotImplementedError):
-        pb.build_pallas_decoder(code, iters=4, interpret=True)
+    with pytest.raises(RuntimeError, match="needs a GPU"):
+        build_pallas_decoder(code, iters=4)
 
 
-def test_layered_not_billed_for_flooding_scratch(monkeypatch):
-    """The normalization L scratch exists only on the flooding path;
-    layered builds near the budget must NOT drop normalization (or
-    halve the tile) for memory that is never allocated (review r4:
-    nr1_r12_z64 layered fits at 11.22 MB but was billed 12.73)."""
-    import tpu_ldpc.decode.pallas_bp as pb
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["judged", "wifi_r12_z81", "wimax_r56_z96"])
+@pytest.mark.parametrize("schedule,early_stop", [
+    ("flooding", True), ("flooding", False), ("layered", True)])
+def test_gpu_kernel_bitexact(gpu, name, schedule, early_stop):
+    """On the card: kernel == golden float32 == XLA path, bits/ok/iters."""
+    from tpu_ldpc.decode.reference import build_decoder
 
-    code = toy_code()
-    base = code.layout.vmem_bytes(128)
-    monkeypatch.setattr(pb, "VMEM_BUDGET_BYTES", base)  # no scratch room
-    called = {}
-    real = pb._normalize_offsets
-
-    def spy(lay):
-        called["yes"] = True
-        return real(lay)
-
-    monkeypatch.setattr(pb, "_normalize_offsets", spy)
-    pb.build_pallas_decoder(code, iters=3, schedule="layered",
-                            interpret=True)
-    assert called.get("yes"), (
-        "layered build dropped normalization under a budget that its "
-        "real footprint fits — the flooding-only scratch is being "
-        "charged schedule-blind again")
+    code = (LdpcCode.judged() if name == "judged" else
+            LdpcCode.from_family(*{"wifi_r12_z81": ("wifi", "1/2", 81),
+                                   "wimax_r56_z96": ("wimax", "5/6", 96)
+                                   }[name]))
+    llr, _ = noisy_llrs(code, 64, 2.5, seed=3)
+    iters = 25 if schedule == "layered" else 50
+    golden = golden_decode(code.H, llr, algo="minsum", iters=iters,
+                           schedule=schedule, early_stop=early_stop,
+                           dtype=np.float32)
+    kw = dict(iters=iters, schedule=schedule, early_stop=early_stop)
+    _assert_same(build_pallas_decoder(code, **kw)(llr), golden)
+    _assert_same(build_decoder(code, **kw)(llr), golden)

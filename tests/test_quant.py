@@ -1,9 +1,10 @@
 """Fixed-point quantized decoding (hardware-emulation mode).
 
 Contract: tpu_ldpc/golden/decoder.py module docstring + quantization
-comment block.  The quantizer uses only exact fp32 ops, so golden / jnp
-reference / Pallas (interpret) must agree BIT-EXACTLY on bits, ok, and
-iters_used — the same contract as float min-sum.
+comment block.  The quantizer uses only exact fp32 ops, so golden and
+the jnp reference (the XLA path, which serves every fixed-point mode)
+must agree BIT-EXACTLY on bits, ok, and iters_used — the same contract
+as float min-sum.  The GPU kernel carries no fixed-point mode.
 """
 
 import numpy as np
@@ -28,7 +29,7 @@ def test_quantizer_properties():
     assert np.abs(q).max() <= 3.5
     # grid membership
     assert np.all(q / 0.5 == np.round(q / 0.5))
-    # -0.0 canonicalization (Pallas reads sign bits)
+    # -0.0 canonicalization (sign-bit readers see +0.0)
     neg = quantize(np.float32(-0.1), bits=4, step=0.5)
     assert np.signbit(neg) == False  # noqa: E712
     s = saturate(np.array([10.0, -10.0, 1.25], np.float32), bits=4, step=0.5)
@@ -55,12 +56,16 @@ def test_quant_bitexact_golden_jnp_pallas(schedule, qbits, qstep):
                         schedule=schedule, quant_bits=qbits, quant_step=qstep)
     jb, jok, jit_ = map(np.asarray, jfn(llr))
     assert (jb == gb).all() and (jok == gok).all() and (jit_ == git).all()
-    pfn = build_pallas_decoder(
-        code, algo="minsum", iters=12, alpha=0.75, schedule=schedule,
-        quant_bits=qbits, quant_step=qstep, interpret=True,
-    )
-    pb, pok, pit = map(np.asarray, pfn(llr))
-    assert (pb == gb).all() and (pok == gok).all() and (pit == git).all()
+    # the backend policy sends fixed-point decodes to the XLA path, and
+    # the kernel itself refuses them rather than run float arithmetic
+    from tpu_ldpc import backend
+    from tpu_ldpc.sim.mc import DecodeCfg
+
+    cfg = DecodeCfg(schedule=schedule, quant_bits=qbits, quant_step=qstep)
+    assert backend.choose_decoder(code, cfg).impl == "jnp"
+    with pytest.raises(TypeError):
+        build_pallas_decoder(code, schedule=schedule, quant_bits=qbits,
+                             interpret=True)
 
 
 def test_quant_quality_vs_float():
@@ -88,6 +93,8 @@ def test_quant_quality_vs_float():
 
 
 def test_quant_validation_and_api():
+    from tpu_ldpc.decode.api import decode as api_decode
+
     code = toy_code()
     llr, _ = noisy_llrs(code, 8, 4.0, seed=1)
     with pytest.raises(ValueError):
@@ -95,11 +102,8 @@ def test_quant_validation_and_api():
     with pytest.raises(ValueError):
         build_decoder(code, algo="sumproduct", quant_bits=6)
     with pytest.raises(ValueError):
-        build_pallas_decoder(code, algo="sumproduct", quant_bits=6,
-                             interpret=True)
+        api_decode(code, llr, algo="minsum", impl="pallas", quant_bits=6)
     # dispatch plumbing: api.decode(quant_bits=...) == golden quantized
-    from tpu_ldpc.decode.api import decode as api_decode
-
     gb, gok, git = golden_decode(code.H, llr, algo="minsum", iters=10,
                                  dtype=np.float32, quant_bits=5,
                                  quant_step=0.5)

@@ -32,6 +32,12 @@ def _noisy_llrs(code, batch, ebn0_db, seed=0):
 class TestSumproductFast:
     @pytest.mark.parametrize("schedule", ["flooding", "layered"])
     def test_bitexact_golden_jnp_pallas(self, small_code, schedule):
+        """golden == XLA path bit-exactly; sumproduct-fast is the XLA
+        path's alone: the GPU kernel refuses it and the backend policy
+        routes it to the XLA path on every backend."""
+        from tpu_ldpc import backend
+        from tpu_ldpc.sim.mc import DecodeCfg
+
         rng = np.random.default_rng(1)
         llr = rng.normal(0.5, 2.0, (32, small_code.n)).astype(np.float32) * 3
 
@@ -42,13 +48,13 @@ class TestSumproductFast:
         jf = build_decoder(small_code, algo="sumproduct-fast", iters=12,
                            schedule=schedule)
         jb, jok, jit_ = map(np.asarray, jf(llr))
-        pf = build_pallas_decoder(small_code, algo="sumproduct-fast",
-                                  iters=12, schedule=schedule,
-                                  interpret=True)
-        pb, pok, pit = map(np.asarray, pf(llr))
-        for a, b in ((gb, jb), (gok, jok), (git, jit_),
-                     (gb, pb), (gok, pok), (git, pit)):
+        for a, b in ((gb, jb), (gok, jok), (git, jit_)):
             assert np.array_equal(a, b)
+        with pytest.raises(ValueError):
+            build_pallas_decoder(small_code, algo="sumproduct-fast",
+                                 schedule=schedule, interpret=True)
+        cfg = DecodeCfg(algo="sumproduct-fast", schedule=schedule)
+        assert backend.choose_decoder(small_code, cfg).impl == "jnp"
 
     @pytest.mark.deep
     def test_fer_between_minsum_and_sumproduct(self, small_code):
@@ -111,12 +117,11 @@ class TestTwoPhase:
         run already pins it for min-sum (flooding + layered) and exact
         SP (layered); spfast itself is a kept negative (DESIGN.md §3)."""
         _, llr = _noisy_llrs(small_code, 128, 3.0, seed=4)
-        ref = build_pallas_decoder(small_code, algo="sumproduct-fast",
-                                   iters=8, early_stop=True,
-                                   interpret=True)
+        ref = build_decoder(small_code, algo="sumproduct-fast", iters=8,
+                            early_stop=True)
         tp = build_twophase_decoder(small_code, iters=8, phase1_iters=3,
                                     budget=128, algo="sumproduct-fast",
-                                    interpret=True)
+                                    impl="jnp")
         for a, b in zip(map(np.asarray, ref(llr)),
                         map(np.asarray, tp(llr))):
             assert np.array_equal(a, b)
@@ -188,10 +193,10 @@ class TestTwoPhase:
                       quant_bits=5, quant_step=0.5)
         # the reference is built EXPLICITLY quantized: had the api
         # dropped quant_bits, outq would be a float decode and could
-        # not reproduce the quantized trajectories below
-        ref = build_pallas_decoder(small_code, iters=8, early_stop=True,
-                                   quant_bits=5, quant_step=0.5,
-                                   interpret=True)
+        # not reproduce the quantized trajectories below (fixed-point
+        # modes are the XLA path's)
+        ref = build_decoder(small_code, iters=8, early_stop=True,
+                            quant_bits=5, quant_step=0.5)
         rb, rok, riu = map(np.asarray, ref(llr))
         for a, b in zip(map(np.asarray, outq), (rb, rok, riu)):
             assert np.array_equal(a, b)
@@ -217,8 +222,7 @@ class TestTwoPhase:
 
     def test_sumproduct_layered_twophase(self, small_code):
         """Exact SP + layered schedule through two-phase compaction is
-        bit-identical to the single-pass layered SP ET decoder (the
-        2.40 Gb/s champion config's correctness contract)."""
+        bit-identical to the single-pass layered SP ET decoder."""
         _, llr = _noisy_llrs(small_code, 128, 3.0, seed=10)
         ref = build_pallas_decoder(small_code, algo="sumproduct",
                                    iters=8, early_stop=True,

@@ -1,4 +1,4 @@
-"""tpu-ldpc: a TPU-native QC-LDPC coding framework.
+"""tpu-ldpc: an accelerator-native QC-LDPC coding framework (JAX).
 
 Brand-new design (not a port) matching the capability surface of the
 C++ reference library `eovs/ldpc-lib` (see SURVEY.md; the reference
@@ -7,12 +7,14 @@ mount is empty, so parity is anchored to BASELINE.json's five configs):
 - QC-LDPC code construction: base-graph registry, circulant lifting,
   girth-aware shift selection (``tpu_ldpc.codes``).
 - Encoding: dual-diagonal back-substitution and dense-generator
-  MXU matmul paths (``tpu_ldpc.encode``).
+  matmul paths (``tpu_ldpc.encode``).
 - Decoding: sum-product and normalized/offset min-sum with flooding and
-  layered schedules and syndrome-checked early termination, as fused
-  Pallas TPU kernels plus a pure-jnp reference path (``tpu_ldpc.decode``).
+  layered schedules and syndrome-checked early termination, as a fused
+  Pallas (Triton) GPU kernel plus an XLA-compiled jnp path
+  (``tpu_ldpc.decode``); ``tpu_ldpc.backend`` picks between them.
 - BPSK/AWGN Monte-Carlo BER/FER harness (``tpu_ldpc.sim``), sharded over
-  multi-host TPU meshes with psum-reduced counters (``tpu_ldpc.dist``).
+  multi-device, multi-host meshes with psum-reduced counters
+  (``tpu_ldpc.dist``).
 - float64/float32 NumPy golden model used as ground truth by all tests
   (``tpu_ldpc.golden``).
 """

@@ -19,7 +19,7 @@ import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "native.cpp")
-_SO = os.path.join(_DIR, "libtpuldpc_native.so")
+_SO = os.path.join(_DIR, "libldpc_native.so")
 
 
 def _build() -> str | None:

@@ -7,7 +7,7 @@
 // too.  Semantics mirror tpu_ldpc/codes/base_graphs.py and
 // tpu_ldpc/golden/encoder.py exactly; cross-checked by tests.
 //
-// Build: g++ -O3 -shared -fPIC native.cpp -o libtpuldpc_native.so
+// Build: g++ -O3 -shared -fPIC native.cpp -o libldpc_native.so
 
 #include <cmath>
 #include <cstdint>

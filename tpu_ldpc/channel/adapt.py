@@ -3,7 +3,7 @@
 Reference parity: QC-LDPC simulation suites in the eovs/ldpc-lib family
 derive multiple operating rates from one mother code the 802.16e way —
 puncture parity blocks (raise the rate) and/or shorten info blocks
-(lower the rate / the block length).  TPU-native, this is a pure
+(lower the rate / the block length).  Here this is a pure
 channel/harness transform: H, the layouts, and the decoder kernels are
 untouched.  Punctured positions enter the decoder as erasures (LLR 0);
 shortened positions are known zeros (saturated positive LLR).  Neither

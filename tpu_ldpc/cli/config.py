@@ -1,6 +1,6 @@
 """Config system (SURVEY.md C14): frozen dataclasses, JSON + CLI overrides.
 
-Mirrors the reference's text-config-driven console programs the TPU-native
+Mirrors the reference's text-config-driven console programs the JAX
 way: plain frozen data, jit-static by construction, with a provenance
 hash stamped into every artifact and checkpoint.
 """

@@ -1,15 +1,12 @@
 """`python -m tpu_ldpc.cli.launch` — multi-host launcher (SURVEY.md §3.3).
 
-Run the SAME command on every host of a pod slice; each process calls
-`jax.distributed.initialize` (TPU pods auto-discover via the runtime;
-CPU/GPU or manual setups pass coordinator flags or env) and then
-executes the sweep CLI with a global mesh.
+Run the SAME command on every host; each process calls
+`jax.distributed.initialize` (with the coordinator given by env, or
+whatever the cluster's runtime discovers) and then executes the sweep
+CLI with a global mesh.
 
-    # TPU pod (auto-discovery):
-    python -m tpu_ldpc.cli.launch -- --family judged --ebn0 2.0 --mesh
-
-    # manual (e.g. CPU multi-process):
-    COORD=host0:1234 NPROC=4 PROC_ID=$i python -m tpu_ldpc.cli.launch ...
+    COORD=host0:1234 NPROC=4 PROC_ID=$i python -m tpu_ldpc.cli.launch \
+        -- --family judged --ebn0 2.0 --mesh
 
 Host 0 writes reports; all hosts make identical early-stop decisions
 from the psum'd counters (replicated-control discipline).
@@ -47,8 +44,10 @@ def main(argv=None):
     if "--mesh" not in argv:
         argv.append("--mesh")
 
+    from tpu_ldpc import backend
     from tpu_ldpc.cli.sim import main as sim_main
 
+    backend.use_compile_cache()
     return sim_main(argv)
 
 

@@ -16,7 +16,7 @@ import time
 
 
 def build_parser():
-    p = argparse.ArgumentParser(description="tpu-ldpc Monte-Carlo BER/FER sweep")
+    p = argparse.ArgumentParser(description="QC-LDPC Monte-Carlo BER/FER sweep")
     p.add_argument("--config", help="JSON config file")
     p.add_argument("--set", action="append", default=[], metavar="K=V",
                    help="dotted config override, e.g. decode.alpha=0.8")
@@ -214,5 +214,14 @@ def main(argv=None):
     return results
 
 
+def entry():
+    """Command-line entry: the compile cache by the backend policy, then
+    the sweep."""
+    from tpu_ldpc import backend
+
+    backend.use_compile_cache()
+    return main()
+
+
 if __name__ == "__main__":
-    main()
+    entry()

@@ -7,10 +7,10 @@ governs the undetected-error question (a decoder can converge to a
 it).  This module supplies that outer check for the whole framework
 (sim/mc.py counter gating, sim/harq.py delivery).
 
-TPU-first design: a CRC is a LINEAR map over GF(2) — the r check bits
+Accelerator-first design: a CRC is a LINEAR map over GF(2) — the r check bits
 of a k-bit message are ``G @ u (mod 2)`` for a fixed (r, k) matrix
 whose column j is ``x^(k-1-j+r) mod g(x)``.  So the batched on-device
-check is ONE f32 matmul (MXU) followed by a parity reduction; no
+check is ONE f32 matmul followed by a parity reduction; no
 per-bit LFSR loop is ever traced.  The bit-serial LFSR lives only in
 the NumPy golden model (`crc_remainder`), which pins the arithmetic
 contract and is tested equal to the matrix path.
@@ -149,16 +149,20 @@ def make_crc_checker(k_total: int, spec):
     """Jittable batched checker: (batch, k_total) uint8 -> (batch,) bool.
 
     One f32 matmul against check_matrix's transpose (exact: partial
-    sums <= k_total < 2^24) + parity test — MXU-shaped, fuses into the
-    surrounding MC step under jit.
+    sums <= k_total < 2^24) + parity test; fuses into the surrounding MC
+    step under jit.  Precision.HIGHEST keeps every backend off
+    reduced-precision (TF32) products; chip_smoke.py checks the result
+    against the golden CRC on the GPU.
     """
+    import jax
     import jax.numpy as jnp
 
     mt = jnp.asarray(check_matrix(k_total, get_spec(spec)).T,
                      dtype=jnp.float32)
 
     def crc_ok(bits):
-        s = jnp.dot(bits.astype(jnp.float32), mt)
+        s = jnp.dot(bits.astype(jnp.float32), mt,
+                    precision=jax.lax.Precision.HIGHEST)
         return jnp.all(s % 2.0 == 0.0, axis=-1)
 
     return crc_ok
@@ -168,13 +172,15 @@ def make_crc_attacher(k_payload: int, spec):
     """Jittable batched attach: (batch, k_payload) uint8 ->
     (batch, k_payload + r) uint8 frame (payload + CRC), same matmul
     trick as the checker."""
+    import jax
     import jax.numpy as jnp
 
     mt = jnp.asarray(crc_matrix(k_payload, get_spec(spec)).T,
                      dtype=jnp.float32)
 
     def attach_fn(payload):
-        c = jnp.dot(payload.astype(jnp.float32), mt) % 2.0
+        c = jnp.dot(payload.astype(jnp.float32), mt,
+                    precision=jax.lax.Precision.HIGHEST) % 2.0
         return jnp.concatenate(
             [payload, c.astype(payload.dtype)], axis=-1)
 

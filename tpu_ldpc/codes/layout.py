@@ -60,14 +60,13 @@ class TannerLayout:
     def col_edges(self, j: int) -> list[int]:
         return [int(e) for e, v in zip(self.col_slots[j], self.col_mask[j]) if v]
 
-    def vmem_bytes(self, batch_tile: int, dtype_bytes: int = 4) -> int:
-        """Estimated VMEM residency of the fused decoder state for one tile:
-        R (E, Z, B) + P scratch + L input (double-buffered across grid
-        steps by the Pallas pipeline, hence 2x) + int8 hard bits."""
-        per_lane = (
-            (self.E + 3 * self.nb) * self.Z * dtype_bytes + self.nb * self.Z
-        )
-        return per_lane * batch_tile
+    def state_bytes(self, tile: int, dtype_bytes: int = 4) -> int:
+        """Decoder state the fused GPU kernel keeps in flight for a tile
+        of `tile` codewords: messages R (E, Zp) plus posterior P and
+        channel L (nb, Zp) each, with Z padded to the next power of two
+        Zp (decode/pallas_bp.py)."""
+        Zp = 1 << (self.Z - 1).bit_length()
+        return (self.E + 2 * self.nb) * Zp * dtype_bytes * tile
 
     def decompile(self) -> np.ndarray:
         """Reconstruct the base matrix (inverse of compile_layout)."""

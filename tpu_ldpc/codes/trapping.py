@@ -18,10 +18,10 @@ a structural set is responsible — the census counts distinct supports
 per class exactly for that signal).
 
 Harvest runs through any batch decoder (native CPU decoder by default
-— the construction-quality workhorse; pass the fused Pallas kernel
-for hardware-rate harvesting).  Frames are generated host-side with
-the paired-seed chunk discipline of scripts/registry_tpu_validation.py
-so a census is reproducible bit-for-bit.
+— the construction-quality workhorse; pass the decoder the backend
+policy picks on a GPU for device-rate harvesting).  Frames are
+generated host-side in paired-seed chunks, so a census is reproducible
+bit-for-bit.
 """
 
 from __future__ import annotations

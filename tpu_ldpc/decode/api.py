@@ -1,27 +1,28 @@
 """Decoder dispatch (SURVEY.md L2 public interface).
 
 `decode(code, llrs, algo=..., iters=...) -> (bits, ok, iters_used)`.
-impl='auto' picks the fused Pallas kernel where supported (TPU, or CPU
-interpret mode in tests) and falls back to the jnp reference decoder.
+Which implementation serves a (code, cfg) is the backend policy's rule
+(tpu_ldpc/backend.py `choose_decoder`): the fused GPU kernel
+(decode/pallas_bp.py) where it applies, else the XLA-compiled jnp
+reference decoder.
 """
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 
+from tpu_ldpc import backend
 from tpu_ldpc.codes.code import LdpcCode
 
 
 def build_decode_fn(code: LdpcCode, cfg, mesh=None, mesh_axis: str = "tp"):
     """cfg: sim.mc.DecodeCfg (or anything with the same fields).
 
-    mesh: optional jax.sharding.Mesh with a `mesh_axis` axis.  When the
-    fused Pallas kernel rejects the code (message state over the VMEM
-    budget — very long blocklengths) and a mesh is given, the decode is
-    routed to the row-striped partitioned decoder (dist/partitioned.py)
-    instead of the single-device jnp fallback (SURVEY.md §5 long-context
-    row; VERDICT r1 missing #4).
+    mesh: optional jax.sharding.Mesh with a `mesh_axis` axis.  A code
+    over the fused kernel's capacity (very long blocklengths) is then
+    decoded across the mesh (dist/ring.py or dist/partitioned.py)
+    instead of by the single-device XLA path (SURVEY.md §5 long-context
+    row).
     """
     impl = getattr(cfg, "impl", "auto")
     # Quantization is only plumbed through the soft BP paths (minsum /
@@ -61,113 +62,63 @@ def build_decode_fn(code: LdpcCode, cfg, mesh=None, mesh_axis: str = "tp"):
             algo=cfg.algo, alpha=cfg.alpha, beta=cfg.beta,
             sweep=getattr(cfg, "window_sweep", "flooding"),
         )
-    # Long-blocklength routing: when the code's message state exceeds
-    # the fused kernel's VMEM budget at the minimum batch tile and the
-    # caller provided a mesh, shard the Tanner graph over the mesh
-    # (row-striped partitioned decoder) instead of the slow
-    # single-device jnp fallback (SURVEY §5 long-context row).
+    # Long-blocklength routing: a code over the fused kernel's capacity
+    # (decode/pallas_bp.py `fits`), given a mesh, is sharded over the
+    # mesh: the ring for banded codes, else the row-striped partitioned
+    # decoder (SURVEY §5 long-context row).
+    from tpu_ldpc.decode import pallas_bp
+
     if (
         mesh is not None
         and impl == "auto"
         and getattr(cfg, "quant_bits", None) is None
         and cfg.schedule == "flooding"
+        and not pallas_bp.fits(code)
     ):
-        from tpu_ldpc.decode.pallas_bp import VMEM_BUDGET_BYTES
+        from tpu_ldpc.dist.partitioned import build_partitioned_decoder
+        from tpu_ldpc.dist.ring import build_ring_decoder, ring_supports
 
-        if code.layout.vmem_bytes(128) > VMEM_BUDGET_BYTES:
-            # banded codes (SC-LDPC chains etc.) prefer the ring: state
-            # fully sharded, O(1) neighbor comms per iteration; the
-            # row-striped partitioned decoder is the general fallback
-            from tpu_ldpc.dist.ring import build_ring_decoder
-
-            try:
-                return build_ring_decoder(
-                    code, mesh, algo=cfg.algo, iters=cfg.iters,
-                    alpha=cfg.alpha, beta=cfg.beta, axis=mesh_axis,
-                )
-            except ValueError:
-                pass
-            from tpu_ldpc.dist.partitioned import build_partitioned_decoder
-
-            return build_partitioned_decoder(
-                code, mesh, algo=cfg.algo, iters=cfg.iters,
-                alpha=cfg.alpha, beta=cfg.beta, axis=mesh_axis,
-            )
-    # 'auto' prefers the fused Pallas kernel on real TPU hardware; on CPU
-    # backends it uses the XLA-compiled jnp reference decoder (Pallas
-    # interpret mode is for tests, far too slow for simulation work).
+        dist_kw = dict(algo=cfg.algo, iters=cfg.iters, alpha=cfg.alpha,
+                       beta=cfg.beta, axis=mesh_axis)
+        if ring_supports(code, mesh.shape[mesh_axis]):
+            return build_ring_decoder(code, mesh, **dist_kw)
+        return build_partitioned_decoder(code, mesh, **dist_kw)
     quant_kw = dict(
         quant_bits=getattr(cfg, "quant_bits", None),
         quant_step=getattr(cfg, "quant_step", 0.5),
         quant_post_bits=getattr(cfg, "quant_post_bits", None),
     )
+    choice = backend.choose_decoder(code, cfg)
     if impl == "twophase":
-        # two-phase straggler-compaction ET (decode/twophase.py):
-        # bit-identical to the single-pass ET Pallas decoder, much
-        # faster at operating points where a few lanes per tile
-        # converge slowly.  Pallas-backed, so TPU (or interpret mode
-        # under tests).  quant_kw is forwarded (ADVICE r2 medium: it
-        # was silently dropped, returning float results labeled
-        # quantized) — build_pallas_decoder accepts it via decoder_kw.
+        # two-phase straggler-compaction ET (decode/twophase.py),
+        # bit-identical to the single-pass ET decoder it is built on.
+        # Unset knobs resolve from the cell's registry metadata or
+        # rate-derived defaults (decode/knobs.py); resolved knobs get a
+        # first-overflow warning, since a mis-sized budget costs ~2x via
+        # the full-batch fallback.
         from tpu_ldpc.decode.knobs import resolve_twophase_knobs
         from tpu_ldpc.decode.twophase import build_twophase_decoder
 
-        # unset knobs resolve from the cell's registry metadata
-        # (hardware-measured) or rate-derived defaults (decode/knobs.py,
-        # VERDICT r3 #3); resolved knobs get a first-overflow warning
-        # since a mis-sized budget silently costs ~2x via the
-        # full-batch fallback
         k, b, source = resolve_twophase_knobs(
             code, cfg.schedule,
             getattr(cfg, "phase1_iters", None),
             getattr(cfg, "compact_budget", None),
         )
-        try:
-            return build_twophase_decoder(
-                code, iters=cfg.iters, phase1_iters=k, budget=b,
-                warn_on_fallback=source != "explicit",
-                algo=cfg.algo, alpha=cfg.alpha, beta=cfg.beta,
-                schedule=cfg.schedule, **quant_kw,
-            )
-        except NotImplementedError as e:
-            # guarded kernel capability rejection (e.g. nr1_r12_z64's
-            # layered+ET state exceeds the VMEM budget): degrade to the
-            # single-pass ET jnp reference with a warning rather than
-            # crash — same outputs as the two-phase path (which is
-            # bit-identical to single-pass ET by contract), lower
-            # throughput
-            import warnings
-
-            warnings.warn(
-                f"impl='twophase' unavailable for this code ({e}); "
-                "falling back to the single-pass ET reference decoder "
-                "(same outputs, lower throughput)", stacklevel=2)
-            from tpu_ldpc.decode.reference import build_decoder
-
-            return build_decoder(
-                code, algo=cfg.algo, iters=cfg.iters, alpha=cfg.alpha,
-                beta=cfg.beta, schedule=cfg.schedule, early_stop=True,
-                **quant_kw,
-            )
-    use_pallas = impl == "pallas" or (
-        impl == "auto" and jax.default_backend() == "tpu"
-    )
-    if use_pallas:
-        try:
-            from tpu_ldpc.decode.pallas_bp import build_pallas_decoder
-
-            return build_pallas_decoder(
-                code,
-                algo=cfg.algo,
-                iters=cfg.iters,
-                alpha=cfg.alpha,
-                beta=cfg.beta,
-                schedule=cfg.schedule,
-                **quant_kw,
-            )
-        except (ImportError, NotImplementedError):
-            if impl == "pallas":
-                raise
+        return build_twophase_decoder(
+            code, iters=cfg.iters, phase1_iters=k, budget=b,
+            warn_on_fallback=source != "explicit", impl=choice.impl,
+            algo=cfg.algo, alpha=cfg.alpha, beta=cfg.beta,
+            schedule=cfg.schedule,
+            **(quant_kw if choice.impl == "jnp" else {}),
+        )
+    if choice.impl == "pallas":
+        if quant_kw["quant_bits"] is not None:
+            raise ValueError("the GPU kernel has no fixed-point mode; "
+                             "impl='auto' or 'jnp' serves quant_bits")
+        return pallas_bp.build_pallas_decoder(
+            code, algo=cfg.algo, iters=cfg.iters, alpha=cfg.alpha,
+            beta=cfg.beta, schedule=cfg.schedule,
+        )
     from tpu_ldpc.decode.reference import build_decoder
 
     return build_decoder(

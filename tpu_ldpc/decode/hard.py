@@ -11,8 +11,8 @@ integer syndrome/majority arithmetic for ``bitflip`` and fp32
 edge-order min / ascending-row accumulation with first-occurrence
 argmax for ``wbf`` — so both are tested bit-exact against golden.
 
-TPU shape: everything is block-circulant rolls over (batch, nb, Z)
-states, the same VPU-friendly layout as the BP reference decoder; the
+Shape: everything is block-circulant rolls over (batch, nb, Z)
+states, the same layout as the BP reference decoder; the
 work per iteration is O(edges) integer ops, far below the BP kernels,
 so the XLA-compiled form is already at the memory-traffic floor and no
 Pallas variant is warranted.

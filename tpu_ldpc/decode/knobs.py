@@ -1,18 +1,18 @@
 """Per-cell two-phase knob resolution (SURVEY.md C9/C14; VERDICT r3 #3).
 
 The two-phase ET decoder's (phase1_iters K, compact budget B) are
-operating-point parameters: mis-sizing is measured to collapse
-throughput 2.2x via the full-batch fallback (K=8/B=512 on the judged
-layered cell -> 1.04 Gb/s vs 2.3 at K=9/B=768 —
-artifacts/tpu_session_r3_layeredtp.json).  Before this module the
+operating-point parameters: a budget the stragglers overflow sends
+every batch through the full-batch fallback and roughly doubles its
+cost (K=8/B=512 on the judged layered cell).  Before this module the
 tuned values lived only in artifacts and scripts, and DecodeCfg
 defaulted every cell to the judged-code FLOODING knobs — a foot-gun
 for anyone decoding a family cell with --impl twophase.
 
 Resolution order for a knob the caller left unset:
-  1. registry metadata (codes/data/twophase_knobs.json): hardware-
-     measured (K, B) per (cell, schedule), refreshed by
-     scripts/tune_registry_knobs.py;
+  1. registry metadata (codes/data/twophase_knobs.json): (K, B) per
+     (cell, schedule), sized from the measured iteration distribution
+     at the cell's operating point (decode/twophase.py
+     tune_phase1_iters);
   2. rate-derived defaults: K from the cell's code rate (higher rate
      => faster BP convergence at its operating point => smaller K;
      anchored on the measured cells), budget a conservative 512

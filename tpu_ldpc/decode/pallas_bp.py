@@ -1,43 +1,45 @@
-"""Fused Pallas BP decoder kernels — the flagship hot core (SURVEY.md C6-C9,
-call stack §3.2).
+"""Fused belief-propagation decoder for the GPU: Pallas through Triton.
 
-Design (TPU-first, not a translation of any CPU/CUDA loop):
+One program decodes a tile of `tile` codewords for all iterations.  Every
+per-block tensor is (Zp, tile): the lift axis Z, padded to the next power
+of two Zp (Triton tensors have power-of-two sizes), by the codewords of
+the tile.
 
-  * One `pallas_call` decodes a whole batch tile for all iterations:
-    messages never touch HBM mid-decode (the §6 roofline shows
-    HBM-resident messages cap well under the target; VMEM-residency is
-    the design).
-  * Lane axis = codeword batch (B_tile lanes), sublane axis = the lift
-    dimension Z.  All per-block tensors are (Z, B_tile) VPU tiles.
-  * Circulant gathers/scatters are static sublane rolls: variable->check
-    coordinates is roll(v, -s), check->variable is roll(r, +s) — no
-    gather/scatter ops anywhere.  (Measured on v5e: a pipelined sublane
-    roll costs about one VPU add.)
-  * The base-graph structure is baked in at trace time from the
-    TannerLayout (static unroll over nonzero blocks); kernels never see
-    construction logic, only the layout contract.
-  * CN->VN messages R live in *check coordinates* in a VMEM scratch of
-    shape (E, Z, B_tile); posterior P and channel L are (nb, Z, B_tile).
-  * The syndrome check is fused into the CN pass: the rolled posterior
-    t = roll(P_j, -s) is both the syndrome operand and the minuend of
-    q = t - R, so early-termination checking costs no extra memory pass.
-    Iteration `it` detects convergence of the posterior produced by
-    iteration it-1 (it=1 checks the raw channel decision).
-  * Min-sum CN update is branchless sign-magnitude arithmetic:
-    magnitudes via abs, the exclusive minimum via prefix/suffix min
-    trees (exactly equal to the golden two-min semantics, ties
-    included), signs as int32 sign bits combined with XOR trees and
-    re-attached with OR.  All of it bit-exact vs the golden fp32 model.
-  * Early termination (C9): per-lane done mask; converged lanes latch
-    their *hard decisions* into an int8 output (cheaper than latching
-    the posterior, and equivalent to freezing since lanes are
-    independent); iters_used matches the golden sequential semantics
-    exactly.  The all-done exit is checked every `exit_block` iterations
-    (scalar reductions stall the vector pipeline, so the guard runs at
-    block granularity while bookkeeping stays per-iteration).
+  * State.  The CN->VN messages R (E, Zp, tile), the posterior P and the
+    channel LLRs L (nb, Zp, tile) live in a slab of device memory that
+    only this program touches (the Triton route has no scratch memory);
+    a slab of a few tens of KB stays in the SM's L1 and the L2.  Nothing
+    is carried in HBM traffic between kernels: the whole decode is one
+    launch.
+  * Circulant shifts.  Block (i, j, s) joins check r of block-row i to
+    variable (r + s) % Z of block-col j.  The CN pass gathers P[j] into
+    check coordinates with a load at row index (r + s) % Z, the VN pass
+    gathers R back with index (v - s) % Z, and the layered sweep
+    scatters its new posterior with a store at (r + s) % Z.  All index
+    tensors are static.
+  * Padding Z.  Rows r >= Z index themselves, so pad rows only ever meet
+    pad rows: the CN update is elementwise in r, and the syndrome count
+    masks r >= Z out.  Pad rows never enter a real min, sign product or
+    syndrome.
+  * Threads of a program exchange state through memory (a gather reads
+    rows another thread wrote), so a block barrier separates every pass
+    that writes state from the next pass that gathers it.
+  * Min-sum CN update: sign-magnitude.  Magnitudes by abs, the exclusive
+    minimum by a balanced tree of mins (min is exact, so this equals the
+    golden two-min scan for every tie pattern), signs as int32 sign bits
+    taken from `q < 0` (as golden does: -0.0 counts as positive),
+    combined by XOR and re-attached with OR.  The only float products
+    (alpha * magnitude) feed the OR, never an add, so no FMA contraction
+    can change their rounding: bit-exact against golden float32.
+  * Early termination: per-codeword done flags; converged codewords stop
+    writing P (masked stores), so their posterior is frozen; the tile's
+    while loop exits when every codeword of the tile has converged.
+    iters_used follows golden's sequential semantics exactly.  On the
+    flooding schedule the syndrome of the previous posterior is taken
+    from the CN pass's own gathers, at no extra memory pass.
 
-The same generator emits sum-product (stable sign/phi form) and the
-row-layered schedule (sequential block-row sweeps inside the kernel).
+The same generator emits exact sum-product (sign / phi form, compared
+with golden by tolerance) and the row-layered schedule.
 """
 
 from __future__ import annotations
@@ -48,164 +50,29 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
+from tpu_ldpc import backend
 from tpu_ldpc.codes.code import LdpcCode
 from tpu_ldpc.golden.decoder import SP_MAX_MAG, SP_MIN_MAG
 
-DEFAULT_BATCH_TILE = 128
-VMEM_BUDGET_BYTES = int(11.5 * 1024 * 1024)
 SIGN_MASK = np.int32(np.uint32(0x80000000))
+KERNEL_ALGOS = ("minsum", "sumproduct")
+# Per-tile state the kernel keeps in flight (R, P and L in fp32): one SM's
+# 256 KB of L1/shared memory, less what a block may not claim.  A code
+# whose state for ONE codeword exceeds it is refused (decode.api then
+# routes it to the XLA path, or across cards to dist/ring.py or
+# dist/partitioned.py).
+STATE_BUDGET_BYTES = 227 * 1024
 
 
-def _roll_to_check(x, s: int, Z: int):
-    """variable -> check coordinates: out[r] = x[(r + s) % Z]."""
-    s = s % Z
-    if s == 0:
-        return x
-    return pltpu.roll(x, Z - s, axis=0)
+def fits(code: LdpcCode) -> bool:
+    """The kernel's capacity rule: one codeword's state fits one SM."""
+    return code.layout.state_bytes(1) <= STATE_BUDGET_BYTES
 
 
-def _roll_to_var(x, s: int, Z: int):
-    """check -> variable coordinates: out[v] = x[(v - s) % Z]."""
-    s = s % Z
-    if s == 0:
-        return x
-    return pltpu.roll(x, s, axis=0)
-
-
-def _xor_tree(vals):
-    """Balanced XOR tree (exact in any order)."""
-    vals = list(vals)
-    while len(vals) > 1:
-        nxt = [a ^ b for a, b in zip(vals[::2], vals[1::2])]
-        if len(vals) % 2:
-            nxt.append(vals[-1])
-        vals = nxt
-    return vals[0]
-
-
-def _prefix_suffix_excl_min(mags):
-    """excl[e] = min over mags of the other edges (== golden two-min
-    semantics for every tie pattern).  Log-depth dependency chains."""
-    d = len(mags)
-    if d == 1:
-        return [mags[0]]  # degree-1 row sends its own magnitude (golden)
-    pre = [None] * d  # pre[e] = min(mags[0..e-1])
-    suf = [None] * d  # suf[e] = min(mags[e+1..])
-    pre[1] = mags[0]
-    for e in range(2, d):
-        pre[e] = jnp.minimum(pre[e - 1], mags[e - 1])
-    suf[d - 2] = mags[d - 1]
-    for e in range(d - 3, -1, -1):
-        suf[e] = jnp.minimum(suf[e + 1], mags[e + 1])
-    out = [suf[0]] + [
-        jnp.minimum(pre[e], suf[e]) for e in range(1, d - 1)
-    ] + [pre[d - 1]]
-    return out
-
-
-def _normalize_offsets(lay):
-    """Per-block-row / per-block-column coordinate rotations (d, c)
-    maximizing the number of edges whose *effective* circulant shift
-    (s_e + d_i - c_j) % Z is zero — those edges need NO sublane roll in
-    either the CN gather or the VN scatter (2 fewer VPU ops per edge per
-    iteration; the §6 roofline shows the kernel is VPU-issue-bound).
-
-    On any Tanner cycle the alternating shift sum is a rotation
-    invariant, so in general at most a spanning tree's worth of edges
-    (mb + nb - 1) can be zeroed.  Search: random spanning-tree starts +
-    coordinate ascent (each node update is exact for its incident
-    edges, so the zero count is monotone), with the identity start
-    included — the result is never worse than the unnormalized layout
-    (which matters for dual-diagonal bases that already carry many
-    zero shifts).
-
-    This is pure coordinate relabeling: the kernel pre-rotates the
-    channel LLRs per column on entry and un-rotates the hard bits on
-    exit, so decode outputs are bit-exact vs the unnormalized kernel.
-    """
-    Z, mb, nb, E = lay.Z, lay.mb, lay.nb, lay.E
-    er = np.asarray(lay.edge_row, dtype=np.int64)
-    ec = np.asarray(lay.edge_col, dtype=np.int64)
-    es = np.asarray(lay.edge_shift, dtype=np.int64)
-    rows_of = [np.nonzero(er == i)[0] for i in range(mb)]
-    cols_of = [np.nonzero(ec == j)[0] for j in range(nb)]
-
-    def zeros(d, c):
-        return int(np.sum((es + d[er] - c[ec]) % Z == 0))
-
-    def ascend(d, c):
-        for _ in range(64):
-            changed = False
-            for i in range(mb):
-                edges = rows_of[i]
-                if len(edges) == 0:
-                    continue
-                cand = (c[ec[edges]] - es[edges]) % Z
-                vals, cnt = np.unique(cand, return_counts=True)
-                best = set(vals[cnt == cnt.max()])
-                if d[i] not in best:
-                    d[i] = int(min(best))
-                    changed = True
-            for j in range(nb):
-                edges = cols_of[j]
-                if len(edges) == 0:
-                    continue
-                cand = (es[edges] + d[er[edges]]) % Z
-                vals, cnt = np.unique(cand, return_counts=True)
-                best = set(vals[cnt == cnt.max()])
-                if c[j] not in best:
-                    c[j] = int(min(best))
-                    changed = True
-            if not changed:
-                break
-        return d, c
-
-    def tree_start(rng):
-        d = np.zeros(mb, np.int64)
-        c = np.zeros(nb, np.int64)
-        seen_r = np.zeros(mb, bool)
-        seen_c = np.zeros(nb, bool)
-        # DFS over the bipartite base graph with randomized edge order;
-        # tree edges get effective shift 0 by construction
-        adj_r = [rng.permutation(rows_of[i]) for i in range(mb)]
-        adj_c = [rng.permutation(cols_of[j]) for j in range(nb)]
-        for root in range(mb):
-            if seen_r[root]:
-                continue
-            seen_r[root] = True
-            stack = [("r", root)]
-            while stack:
-                kind, u = stack.pop()
-                if kind == "r":
-                    for e in adj_r[u]:
-                        j = ec[e]
-                        if not seen_c[j]:
-                            seen_c[j] = True
-                            c[j] = (d[u] + es[e]) % Z
-                            stack.append(("c", j))
-                else:
-                    for e in adj_c[u]:
-                        i = er[e]
-                        if not seen_r[i]:
-                            seen_r[i] = True
-                            d[i] = (c[u] - es[e]) % Z
-                            stack.append(("r", i))
-        return d, c
-
-    rng = np.random.default_rng(0)
-    best_d, best_c = ascend(np.zeros(mb, np.int64), np.zeros(nb, np.int64))
-    best_z = zeros(best_d, best_c)
-    for _ in range(12):
-        d, c = ascend(*tree_start(rng))
-        z = zeros(d, c)
-        if z > best_z:
-            best_d, best_c, best_z = d, c, z
-    return (
-        [int(x) % Z for x in best_d],
-        [int(x) % Z for x in best_c],
-    )
+def _next_pow2(x: int) -> int:
+    return 1 << (int(x) - 1).bit_length()
 
 
 def _i32(x):
@@ -216,19 +83,60 @@ def _f32(x):
     return jax.lax.bitcast_convert_type(x, jnp.float32)
 
 
-def _cn_minsum_kernel(qs, alpha: float, beta: float):
-    """Branchless sign-magnitude min-sum CN update; bit-exact vs golden."""
-    mags = [jnp.abs(q) for q in qs]
-    sbits = [_i32(q) & SIGN_MASK for q in qs]
+def _sign_bit(x):
+    """SIGN_MASK where x < 0, else 0 (-0.0 is positive, as in golden)."""
+    return jnp.where(x < 0, SIGN_MASK, np.int32(0))
+
+
+def _xor_tree(vals):
+    vals = list(vals)
+    while len(vals) > 1:
+        nxt = [a ^ b for a, b in zip(vals[::2], vals[1::2])]
+        if len(vals) % 2:
+            nxt.append(vals[-1])
+        vals = nxt
+    return vals[0]
+
+
+def _excl_min(mags):
+    """excl[e] = min of the other edges' magnitudes, by a balanced tree:
+    each half's min is combined with what lies outside it, so the depth
+    is log2(d) and no serial prefix/suffix chain is built.  A degree-1
+    row sends its own magnitude (golden)."""
+    if len(mags) == 1:
+        return [mags[0]]
+    memo = {}
+
+    def min_of(lo, hi):
+        if (lo, hi) not in memo:
+            if hi - lo == 1:
+                memo[lo, hi] = mags[lo]
+            else:
+                mid = (lo + hi) // 2
+                memo[lo, hi] = jnp.minimum(min_of(lo, mid), min_of(mid, hi))
+        return memo[lo, hi]
+
+    def rec(lo, hi, outside):
+        if hi - lo == 1:
+            return [outside]
+        mid = (lo + hi) // 2
+        left, right = min_of(lo, mid), min_of(mid, hi)
+        out_l = right if outside is None else jnp.minimum(outside, right)
+        out_r = left if outside is None else jnp.minimum(outside, left)
+        return rec(lo, mid, out_l) + rec(mid, hi, out_r)
+
+    return rec(0, len(mags), None)
+
+
+def _cn_minsum(qs, alpha: float, beta: float):
+    sbits = [_sign_bit(q) for q in qs]
     total = _xor_tree(sbits)
-    excl = _prefix_suffix_excl_min(mags)
     outs = []
-    for e in range(len(qs)):
-        mag = excl[e]
+    for e, mag in enumerate(_excl_min([jnp.abs(q) for q in qs])):
         if beta != 0.0:
             mag = jnp.maximum(mag - beta, 0.0)
         if alpha != 1.0:
-            mag = mag * alpha
+            mag = mag * alpha  # feeds only the OR below: never FMA-fused
         outs.append(_f32(_i32(mag) | (total ^ sbits[e])))
     return outs
 
@@ -238,87 +146,16 @@ def _phi(x):
     return -jnp.log(jnp.tanh(x * 0.5))
 
 
-def _ctilde_k(x):
-    # FMA-safe 3-segment PWL of log(1+e^-x): power-of-two slopes (see
-    # the sumproduct-fast contract in tpu_ldpc/golden/decoder.py)
-    return jnp.maximum(
-        jnp.maximum(
-            jnp.maximum(0.6931472 - 0.5 * x, 0.57 - 0.25 * x),
-            0.40 - 0.125 * x,
-        ),
-        0.0,
-    )
-
-
-def _fpair_k(a, b):
-    d1 = _ctilde_k(a + b)
-    d2 = _ctilde_k(jnp.abs(a - b))
-    return jnp.maximum(jnp.minimum(a, b) + (d1 - d2), 0.0)
-
-
-def _cn_sumproduct_fast_kernel(qs, alpha: float, beta: float):
-    """lambda-min2 PWL sum-product CN update, branchless sign-magnitude
-    form; bit-exact vs the golden sumproduct-fast contract (all ops are
-    exact-or-correctly-rounded fp32 min/max/add/mul — no transcendentals,
-    which is the whole point vs _cn_sumproduct_kernel)."""
+def _cn_sumproduct(qs, alpha: float, beta: float):
     del alpha, beta
-    d = len(qs)
-    mags = [jnp.abs(q) for q in qs]
-    sbits = [_i32(q) & SIGN_MASK for q in qs]
+    sbits = [_sign_bit(q) for q in qs]
     total = _xor_tree(sbits)
-    if d == 1:
-        outs_mag = [mags[0]]
-    elif d == 2:
-        outs_mag = [mags[1], mags[0]]
-    else:
-        # three-smallest scan with first-occurrence slot argmins (the
-        # values are pure multiset statistics; argmins only route which
-        # f-pair each edge reads)
-        big = jnp.full_like(mags[0], jnp.inf)
-        m1, m2, m3 = mags[0], big, big
-        a1 = jnp.zeros(mags[0].shape, jnp.int32)
-        a2 = jnp.full(mags[0].shape, -1, jnp.int32)
-        for t in range(1, d):
-            mt = mags[t]
-            lt1 = mt < m1
-            lt2 = jnp.logical_and(jnp.logical_not(lt1), mt < m2)
-            lt3 = jnp.logical_and(
-                jnp.logical_not(jnp.logical_or(lt1, lt2)), mt < m3
-            )
-            m3 = jnp.where(jnp.logical_or(lt1, lt2), m2,
-                           jnp.where(lt3, mt, m3))
-            m2 = jnp.where(lt1, m1, jnp.where(lt2, mt, m2))
-            a2 = jnp.where(lt1, a1, jnp.where(lt2, t, a2))
-            m1 = jnp.where(lt1, mt, m1)
-            a1 = jnp.where(lt1, t, a1)
-        f23 = _fpair_k(m2, m3)
-        f13 = _fpair_k(m1, m3)
-        f12 = _fpair_k(m1, m2)
-        outs_mag = [
-            jnp.where(a1 == t, f23, jnp.where(a2 == t, f13, f12))
-            for t in range(d)
-        ]
-    return [
-        _f32(_i32(outs_mag[e]) | (total ^ sbits[e])) for e in range(d)
-    ]
-
-
-def _cn_sumproduct_kernel(qs, alpha: float, beta: float):
-    """Stable sign/phi sum-product CN update (matches golden within fp
-    tolerance; transcendentals dominate, so no bit tricks here)."""
-    del alpha, beta
-    mags = [jnp.abs(q) for q in qs]
-    sbits = [_i32(q) & SIGN_MASK for q in qs]
-    total = _xor_tree(sbits)
-    phis = [_phi(m) for m in mags]
+    phis = [_phi(jnp.abs(q)) for q in qs]
     tot = phis[0]
     for p in phis[1:]:
         tot = tot + p
-    outs = []
-    for e in range(len(qs)):
-        mag = _phi(tot - phis[e])
-        outs.append(_f32(_i32(mag) | (total ^ sbits[e])))
-    return outs
+    return [_f32(_i32(_phi(tot - p)) | (total ^ sb))
+            for p, sb in zip(phis, sbits)]
 
 
 @functools.lru_cache(maxsize=64)
@@ -330,601 +167,231 @@ def build_pallas_decoder(
     beta: float = 0.0,
     schedule: str = "flooding",
     early_stop: bool = True,
-    batch_tile: int = DEFAULT_BATCH_TILE,
-    exit_block: int = 5,
-    normalize: bool = True,
-    unroll: int = 1,
-    rescaled: bool = False,
-    interpret: bool | None = None,
-    dtype=jnp.float32,
-    msg_dtype=None,
-    compressed: bool = False,
-    quant_bits: int | None = None,
-    quant_step: float = 0.5,
-    quant_post_bits: int | None = None,
+    tile: int = 1,
+    interpret: bool = False,
 ):
-    """Build a jitted Pallas decoder: llr (batch, n) -> (bits, ok, iters_used).
+    """Build a jitted GPU decoder: llr (batch, n) -> (bits, ok, iters_used).
 
-    msg_dtype: storage dtype for the CN->VN message scratch R (SURVEY.md
-    M7 quantization lever).  None/float32 keeps the bit-exact contract;
-    jnp.bfloat16 halves R's VMEM footprint and traffic — compute stays
-    f32 (sublane rotates require 32-bit data), only loads/stores convert.
-    Quantized modes trade the bit-exact-vs-golden property for
-    throughput; min-sum is famously robust to message quantization
-    (hardware decoders run 6-8 bit messages).
+    tile: codewords per program (a power of two).  One codeword per
+      program, on one warp, measured fastest on an H100 (judged code:
+      tiles of 1, 2, 4 and 8 at their best warp counts ran 1.64, 1.96,
+      1.91 and 3.31 ms per 4096-codeword batch, flooding-50; at tile 1,
+      one warp beat two and four on the judged and wifi_r12_z81 codes
+      except wifi flooding without early stop, where four warps were 3%
+      faster).
+    interpret: run the kernel in the Pallas interpreter (tests on the
+      CPU).  Without it the kernel needs a GPU and refuses other
+      backends.
 
-    quant_bits/quant_step/quant_post_bits: fixed-point hardware-emulation
-    mode (min-sum only) — uniform round + symmetric saturation applied at
-    the channel entry, the VN->CN messages, the CN outputs, and the
-    posterior, per the contract in tpu_ldpc/golden/decoder.py.  This mode
-    KEEPS the bit-exact-vs-golden property (all quantizer ops are exact
-    fp32), unlike msg_dtype: it models a q-bit hardware datapath rather
-    than compressing VMEM storage.
-
-    Raises NotImplementedError if the code's message state cannot fit the
-    VMEM budget (the decode.api dispatcher then falls back to the jnp
-    reference decoder).
+    Raises ValueError for an algorithm or schedule the kernel does not
+    carry, or a code over the kernel's capacity (`fits`).
     """
-    if algo not in ("minsum", "sumproduct", "sumproduct-fast"):
-        raise ValueError(f"unknown algo {algo!r}")
+    if algo not in KERNEL_ALGOS:
+        raise ValueError(f"kernel algos are {KERNEL_ALGOS}, not {algo!r}")
     if schedule not in ("flooding", "layered"):
         raise ValueError(f"unknown schedule {schedule!r}")
-    if rescaled and (
-        algo != "minsum" or schedule != "flooding" or beta != 0.0
-        or compressed or quant_bits is not None or iters > 200
-        or (msg_dtype is not None and msg_dtype != dtype)
-    ):
+    if not fits(code):
         raise ValueError(
-            "rescaled decoding requires algo='minsum', schedule='flooding',"
-            " beta=0, full-precision messages, no quantization and"
-            " iters <= 200"
-        )
+            f"{code.name}: {code.layout.state_bytes(1)} B of state per "
+            f"codeword exceeds the kernel's {STATE_BUDGET_BYTES} B")
+    if not interpret:
+        backend.require_gpu("the Pallas Triton decoder kernel")
     lay = code.layout
-    Z, mb, nb, E = lay.Z, lay.mb, lay.nb, lay.E
-
-    def state_bytes(bt):
-        # + one (nb, Z, bt) rotated/rescaled-L scratch when normalization
-        # or rescaling is on — FLOODING ONLY (has_lrot below): the
-        # layered path never allocates it, and charging it anyway made
-        # layered codes near the budget lose normalization (or halve
-        # batch_tile) for memory that is never allocated (review r4:
-        # nr1_r12_z64 layered fits at 11.22 MB but was billed 12.73)
-        extra = (nb * Z * 4 * bt
-                 if ((normalize or rescaled) and not compressed
-                     and schedule == "flooding") else 0)
-        return lay.vmem_bytes(bt) + extra
-
-    requested_tile = batch_tile
-    while batch_tile > 128 and state_bytes(batch_tile) > VMEM_BUDGET_BYTES:
-        batch_tile //= 2
-    if state_bytes(batch_tile) > VMEM_BUDGET_BYTES:
-        # The normalization L scratch (nb*Z*4*bt) is a ~5% throughput
-        # OPTIMIZATION, not a capability: when it alone pushes a big
-        # code over the budget (e.g. nr1_r12_z64: 12.73 MB with it,
-        # 11.22 without), drop normalization instead of rejecting —
-        # outputs are bit-exact either way (pure relabeling).  Retry
-        # from the CALLER'S tile, not the halved one: without the
-        # scratch a larger tile may fit again (review r4).
-        if normalize and not rescaled and not compressed and (
-                lay.vmem_bytes(batch_tile) <= VMEM_BUDGET_BYTES):
-            return build_pallas_decoder(
-                code, algo=algo, iters=iters, alpha=alpha, beta=beta,
-                schedule=schedule, early_stop=early_stop,
-                batch_tile=requested_tile, exit_block=exit_block,
-                normalize=False, unroll=unroll, rescaled=rescaled,
-                interpret=interpret, dtype=dtype, msg_dtype=msg_dtype,
-                compressed=compressed, quant_bits=quant_bits,
-                quant_step=quant_step, quant_post_bits=quant_post_bits,
-            )
-        raise NotImplementedError(
-            f"{code.name}: decoder state {state_bytes(batch_tile)} B "
-            f"exceeds VMEM budget at batch_tile={batch_tile}"
-        )
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-
+    Z, mb, nb, E, n = lay.Z, lay.mb, lay.nb, lay.E, lay.n
+    Zp = _next_pow2(Z)
+    tile = int(tile)
+    if tile < 1 or tile & (tile - 1):
+        raise ValueError(f"tile must be a power of two, got {tile}")
     ecol = [int(c) for c in lay.edge_col]
-    if normalize and not compressed:
-        row_off, col_off = _normalize_offsets(lay)
-    else:
-        row_off, col_off = [0] * mb, [0] * nb
-    normalized_cols = any(c != 0 for c in col_off)
-    # effective shifts after coordinate normalization (see
-    # _normalize_offsets); zero-shift edges compile to no roll at all
-    eshift = [
-        int(lay.edge_shift[e] + row_off[lay.edge_row[e]]
-            - col_off[lay.edge_col[e]]) % Z
-        for e in range(E)
-    ]
+    eshift = [int(s) % Z for s in lay.edge_shift]
     row_edges = [lay.row_edges(i) for i in range(mb)]
     col_edges = [lay.col_edges(j) for j in range(nb)]
-    n = lay.n
+    cn_update = _cn_minsum if algo == "minsum" else _cn_sumproduct
     f_alpha, f_beta = float(alpha), float(beta)
-    # rescaled contract (golden/decoder.py decode() docstring): CN runs
-    # with alpha=1 (no per-edge multiply); the scaled-L scratch is
-    # multiplied in place by the constant 1/alpha once per iteration
-    # (nb constant vector multiplies replace E per-edge multiplies —
-    # a scalar-carried scale was measured SLOWER: the SREG broadcast
-    # serializes against the vector pipeline).
-    k_alpha = 1.0 if rescaled else f_alpha
-    inv_alpha = float(np.float32(1.0) / np.float32(alpha))
-    cn_update = {
-        "minsum": _cn_minsum_kernel,
-        "sumproduct": _cn_sumproduct_kernel,
-        "sumproduct-fast": _cn_sumproduct_fast_kernel,
-    }[algo]
-    if msg_dtype is None:
-        msg_dtype = dtype
-    quantized = msg_dtype != dtype
-    qz = sat_msg = sat_post = None
-    if quant_bits is not None:
-        if algo != "minsum":
-            raise ValueError("quantized decoding supports algo='minsum' only")
-        if compressed or quantized:
-            raise NotImplementedError(
-                "fixed-point quant mode excludes compressed/msg_dtype modes"
-            )
-        from tpu_ldpc.decode.reference import make_quantizers
 
-        qz, sat_msg, sat_post = make_quantizers(
-            int(quant_bits), float(quant_step),
-            int(quant_post_bits) if quant_post_bits is not None
-            else int(quant_bits) + 2,
-        )
-    if compressed:
-        # compressed row state replaces per-edge R entirely
-        if algo != "minsum" or schedule != "flooding" or quantized:
-            raise NotImplementedError(
-                "compressed row state: minsum + flooding + f32 only"
-            )
-        if lay.max_row_deg > 8:
-            raise NotImplementedError(
-                "compressed row state packs signs into int8: row degree <= 8"
-            )
-    # slot index of each edge within its row (for compressed reconstruction)
-    eslot = [e - int(lay.row_ptr[lay.edge_row[e]]) for e in range(E)]
+    def kernel(L_ref, P_ref, R_ref, ok_ref, iu_ref):
+        r = jax.lax.broadcasted_iota(jnp.int32, (Zp, tile), 0)
+        col = jax.lax.broadcasted_iota(jnp.int32, (Zp, tile), 1)
+        real = r < Z
+        # row index (r + s) % Z for real rows, r for pad rows; built once
+        # here, outside the loops that use them
+        index = {}
+        for s in {*eshift, *((Z - s) % Z for s in eshift)}:
+            v = r + s
+            index[s] = jnp.where(real, jnp.where(v >= Z, v - Z, v), r)
+        rows_at = index.__getitem__
 
-    def load_R(R_scr, e):
-        r = R_scr[e]
-        return r.astype(dtype) if quantized else r
+        def gather(ref, k, s):
+            return ref[k] if s == 0 else ref[k, rows_at(s), col]
 
-    def store_R(R_scr, e, val):
-        R_scr[e] = val.astype(msg_dtype) if quantized else val
+        def barrier():
+            if not interpret:
+                plgpu.debug_barrier()
 
-    def syndrome_violations(P_scr):
-        """Standalone syndrome pass: total violation count, (1, B) int32."""
-        viols = []
-        for i in range(mb):
-            par = _xor_tree([
-                _i32(_roll_to_check(P_scr[ecol[e]], eshift[e], Z)) & SIGN_MASK
-                for e in row_edges[i]
-            ])
-            viols.append(
-                jnp.sum((par != 0).astype(jnp.int32), axis=0, keepdims=True)
-            )
-        out = viols[0]
-        for v in viols[1:]:
-            out = out + v
-        return out
+        def violations(par):
+            """(tile,) int32: real check rows of one block-row unsatisfied."""
+            return jnp.sum(jnp.where(real & (par != 0), 1, 0), axis=0)
 
-    # mutable L copy: needed to amortize the normalization rotation, and
-    # by the rescaled contract (the scaled-L scratch mutates per iter)
-    has_lrot = (normalized_cols or rescaled) and schedule == "flooding"
+        def syndrome():
+            viol = jnp.zeros((tile,), jnp.int32)
+            for i in range(mb):
+                viol = viol + violations(_xor_tree(
+                    [_sign_bit(gather(P_ref, ecol[e], eshift[e]))
+                     for e in row_edges[i]]))
+            return viol
 
-    def kernel(L_ref, bits_ref, ok_ref, iu_ref, P_scr, R_scr, *extra):
-        # Normalized variable coordinates: the per-column entry
-        # rotation happens ONCE here into the L_rot scratch (nb rolls
-        # per decode, amortized over all iterations — an XLA-side
-        # gather was measured to cost as much as the rolls it saved,
-        # artifacts/tpu_session_r2.json), and the decoded bits are
-        # un-rotated once on the way out.
-        L_rot = extra[0] if has_lrot else None
-        zero_msgs = jnp.zeros((Z, batch_tile), msg_dtype)
-        L = L_ref if L_rot is None else L_rot
         for j in range(nb):
-            v = _roll_to_check(L_ref[j], col_off[j], Z)
-            if L_rot is not None:
-                # rescaled: the scratch holds the NEXT iteration's scaled
-                # L (alpha^-1 at init).  The multiply feeds ONLY a store:
-                # a product consumed by an add can be FMA-fused by the
-                # backend (unrounded product), silently breaking the
-                # bit-exact contract vs golden's rounded multiply —
-                # observed at iteration ~110 on adversarial LLRs.
-                L_rot[j] = v * inv_alpha if rescaled else v
-            P_scr[j] = v
+            P_ref[j] = L_ref[j]
+        zeros = jnp.zeros((Zp, tile), jnp.float32)
         for e in range(E):
-            R_scr[e] = zero_msgs
+            R_ref[e] = zeros
+        barrier()
 
-        ok_ref[...] = jnp.zeros((1, batch_tile), jnp.int32)
-        iu_ref[...] = jnp.full((1, batch_tile), iters, jnp.int32)
-
-        def cn_pass_fused():
-            """CN pass; returns the violation count of the *pre-pass*
-            posterior for free (t = roll(P_j, -s) is shared).  With
-            early termination off the parity work is skipped entirely."""
-            viols = []
+        def flooding(active):
+            """One flooding iteration.  Returns the violation count of the
+            posterior it started from (None without early stop); the VN
+            pass writes only the codewords still active after that check
+            (`active` maps the count to the new active mask)."""
+            viol = jnp.zeros((tile,), jnp.int32) if early_stop else None
             for i in range(mb):
-                es = row_edges[i]
-                ts = [
-                    _roll_to_check(P_scr[ecol[e]], eshift[e], Z) for e in es
-                ]
+                ts = [gather(P_ref, ecol[e], eshift[e])
+                      for e in row_edges[i]]
                 if early_stop:
-                    par = _xor_tree([_i32(t) & SIGN_MASK for t in ts])
-                    viols.append(
-                        jnp.sum((par != 0).astype(jnp.int32), axis=0,
-                                keepdims=True)
-                    )
-                qs = [t - load_R(R_scr, e) for t, e in zip(ts, es)]
-                if sat_msg is not None:
-                    qs = [sat_msg(q) for q in qs]
-                for e, r_new in zip(es, cn_update(qs, k_alpha, f_beta)):
-                    store_R(R_scr, e, qz(r_new) if qz is not None else r_new)
-            if not early_stop:
-                return None
-            viol = viols[0]
-            for v in viols[1:]:
-                viol = viol + v
-            return viol
-
-        def vn_pass():
-            # sequential accumulation in ascending block-row order (the
-            # golden contract fixes this order; chains are <= max col deg)
-            for j in range(nb):
-                p = L[j]
-                if rescaled:
-                    # L holds this iteration's scale already (see init);
-                    # advance it for the NEXT iteration with a multiply
-                    # whose result feeds ONLY the store — an add-consumed
-                    # product is FMA-fusable (unrounded) on some
-                    # backends, which breaks golden bit-exactness
-                    L[j] = p * inv_alpha
-                for e in col_edges[j]:
-                    p = p + _roll_to_var(load_R(R_scr, e), eshift[e], Z)
-                P_scr[j] = sat_post(p) if sat_post is not None else p
-
-        def latch(viol, it_minus_1):
-            """Convergence bookkeeping for the posterior checked by `viol`.
-            Latches hard decisions (== freezing: lanes are independent)."""
-            ok_now = (viol == 0).astype(jnp.int32)
-            newly = ok_now * (1 - ok_ref[...])
-            keep = newly[0, :] == 1
-            for j in range(nb):
-                hard = (P_scr[j] < 0).astype(jnp.int8)
-                bits_ref[j] = jnp.where(keep, hard, bits_ref[j])
-            iu_ref[...] = jnp.where(
-                newly == 1, it_minus_1, iu_ref[...]
-            ).astype(jnp.int32)
-            ok_ref[...] = jnp.maximum(ok_ref[...], ok_now)
-
-        if schedule == "flooding":
-            def one_iter(it):
-                # iteration `it` detects convergence of the posterior
-                # produced by iteration it-1 (it=1 checks the raw channel
-                # decision: iters_used=0) — golden contract preserved.
-                viol = cn_pass_fused()
-                if early_stop:
-                    latch(viol, it - 1)
-                vn_pass()
-        else:
-            def one_iter(it):
-                for i in range(mb):
-                    es = row_edges[i]
-                    qs_raw = [
-                        _roll_to_check(P_scr[ecol[e]], eshift[e], Z)
-                        - load_R(R_scr, e)
-                        for e in es
-                    ]
-                    # message saturation feeds the CN only; the posterior
-                    # update keeps the wide APP value (golden contract)
-                    qs = ([sat_msg(q) for q in qs_raw]
-                          if sat_msg is not None else qs_raw)
-                    outs = cn_update(qs, f_alpha, f_beta)
-                    if qz is not None:
-                        outs = [qz(r) for r in outs]
-                    for e, q, r_new in zip(es, qs_raw, outs):
-                        p_new = q + r_new
-                        if sat_post is not None:
-                            p_new = sat_post(p_new)
-                        P_scr[ecol[e]] = _roll_to_var(p_new, eshift[e], Z)
-                        store_R(R_scr, e, r_new)
-                if early_stop:
-                    latch(syndrome_violations(P_scr), it)
-
-            if early_stop:
-                latch(syndrome_violations(P_scr), 0)
-
-        def body(it, _):
-            one_iter(it)
-            return 0
-
-        # all-done early exit at exit_block granularity: scalar reads of
-        # the done mask stall the vector pipeline, so guard per block.
-        # With early_stop off the mask never sets — skip the guard (and
-        # its scalar reductions) entirely and run one flat loop, unrolled
-        # `unroll` iterations per trip (the body ignores `it` on this
-        # path, so unrolling is purely a scheduling lever).
-        if not early_stop:
-            u = max(1, unroll)
-            n_trips, rem = divmod(iters, u)
-
-            def body_u(t, _):
-                for _k in range(u):
-                    one_iter(0)
-                return 0
-
-            if n_trips:
-                jax.lax.fori_loop(0, n_trips, body_u, 0)
-            for _k in range(rem):
-                one_iter(0)
-        else:
-            g = max(1, exit_block)
-            n_blocks, rem = divmod(iters, g)
-
-            def block(b, _):
-                done = ok_ref[0, :]
-
-                @pl.when(jnp.sum(done) < batch_tile)
-                def _():
-                    jax.lax.fori_loop(b * g + 1, b * g + g + 1, body, 0)
-
-                return 0
-
-            jax.lax.fori_loop(0, n_blocks, block, 0)
-            if rem:
-                jax.lax.fori_loop(n_blocks * g + 1, iters + 1, body, 0)
-
-        if schedule == "flooding":
-            # final posterior still needs one standalone syndrome check
-            viol = syndrome_violations(P_scr)
-            if early_stop:
-                latch(viol, iters)
-            else:
-                ok_ref[...] = (viol == 0).astype(jnp.int32)
-        elif not early_stop:
-            viol = syndrome_violations(P_scr)
-            ok_ref[...] = (viol == 0).astype(jnp.int32)
-
-        done = ok_ref[0, :]
-        for j in range(nb):
-            if col_off[j] == 0:
-                hard = (P_scr[j] < 0).astype(jnp.int8)
-                if early_stop:
-                    bits_ref[j] = jnp.where(done == 1, bits_ref[j], hard)
-                else:
-                    bits_ref[j] = hard
-            else:
-                # leave normalized coordinates: un-rotate in int32
-                # (int8 sublane rolls are unimplemented in Mosaic);
-                # int8 only at the VMEM boundary.  Latched bits in
-                # bits_ref are still rotated — merge first, roll once.
-                hard = (P_scr[j] < 0).astype(jnp.int32)
-                if early_stop:
-                    hard = jnp.where(
-                        done == 1, bits_ref[j].astype(jnp.int32), hard
-                    )
-                bits_ref[j] = _roll_to_var(hard, col_off[j], Z).astype(
-                    jnp.int8
-                )
-
-    def kernel_compressed(L_ref, bits_ref, ok_ref, iu_ref,
-                          P_scr, M1, M2, ARG, SGN):
-        """Flooding min-sum with compressed per-row message state.
-
-        Instead of E per-edge CN->VN messages, each block-row stores
-        (min1', min2', argmin slot, packed output-sign byte) — the
-        complete description of its extrinsic outputs (the classic
-        hardware compression).  R_e is reconstructed exactly:
-            mag  = argmin==slot ? min2' : min1'
-            sign = (signs >> slot) & 1
-        so the decode stays bit-exact vs the golden model while message
-        VMEM traffic drops ~3x.  Requires row degree <= 8 (int8 signs).
-        """
-        for j in range(nb):
-            P_scr[j] = L_ref[j]
-        zf = jnp.zeros((Z, batch_tile), dtype)
-        zb = jnp.zeros((Z, batch_tile), jnp.int8)
-        for i in range(mb):
-            M1[i] = zf
-            M2[i] = zf
-            ARG[i] = zb
-            SGN[i] = zb
-        ok_ref[...] = jnp.zeros((1, batch_tile), jnp.int32)
-        iu_ref[...] = jnp.full((1, batch_tile), iters, jnp.int32)
-
-        def reconstruct(i, slot):
-            # int8 only at the VMEM boundary: int32 compute avoids
-            # mask-layout mismatches between (8,128) f32 and (32,128)
-            # int8 tilings in Mosaic
-            arg = ARG[i].astype(jnp.int32)
-            sgn = SGN[i].astype(jnp.int32)
-            mag = jnp.where(arg == slot, M2[i], M1[i])
-            bit = (sgn >> slot) & 1
-            return _f32(_i32(mag) | (bit << 31))
-
-        def cn_pass():
-            viols = []
-            for i in range(mb):
-                es = row_edges[i]
-                d = len(es)
-                ts = [
-                    _roll_to_check(P_scr[ecol[e]], eshift[e], Z) for e in es
-                ]
-                if early_stop:
-                    par = _xor_tree([_i32(t) & SIGN_MASK for t in ts])
-                    viols.append(
-                        jnp.sum((par != 0).astype(jnp.int32), axis=0,
-                                keepdims=True)
-                    )
-                qs = [
-                    t - reconstruct(i, eslot[e]) for t, e in zip(ts, es)
-                ]
-                mags = [jnp.abs(q) for q in qs]
-                sbits = [_i32(q) & SIGN_MASK for q in qs]
-                # sequential two-min scan (first-occurrence argmin):
-                # identical tie semantics to the golden model
-                min1 = mags[0]
-                min2 = jnp.full_like(min1, jnp.inf)
-                argm = jnp.zeros((Z, batch_tile), jnp.int32)
-                for t_ in range(1, d):
-                    new = mags[t_] < min1
-                    min2 = jnp.where(new, min1, jnp.minimum(min2, mags[t_]))
-                    argm = jnp.where(new, t_, argm)
-                    min1 = jnp.where(new, mags[t_], min1)
-                if d == 1:
-                    min2 = min1
-                total = _xor_tree(sbits)
-                if f_beta != 0.0:
-                    min1 = jnp.maximum(min1 - f_beta, 0.0)
-                    min2 = jnp.maximum(min2 - f_beta, 0.0)
-                if f_alpha != 1.0:
-                    min1 = min1 * f_alpha
-                    min2 = min2 * f_alpha
-                byte = None
-                for t_, sb in enumerate(sbits):
-                    bit = jax.lax.shift_right_logical(total ^ sb, 31)
-                    contrib = bit << t_
-                    byte = contrib if byte is None else byte | contrib
-                M1[i] = min1
-                M2[i] = min2
-                ARG[i] = argm
-                SGN[i] = byte.astype(jnp.int8)
-            if not early_stop:
-                return None
-            viol = viols[0]
-            for v in viols[1:]:
-                viol = viol + v
-            return viol
-
-        def vn_pass():
+                    viol = viol + violations(
+                        _xor_tree([_sign_bit(t) for t in ts]))
+                qs = [t - R_ref[e] for t, e in zip(ts, row_edges[i])]
+                for e, r_new in zip(row_edges[i],
+                                    cn_update(qs, f_alpha, f_beta)):
+                    R_ref[e] = r_new
+            barrier()
+            live = None if viol is None else active(viol)
             for j in range(nb):
                 p = L_ref[j]
-                for e in col_edges[j]:
-                    i = int(lay.edge_row[e])
-                    p = p + _roll_to_var(
-                        reconstruct(i, eslot[e]), eshift[e], Z
-                    )
-                P_scr[j] = p
+                for e in col_edges[j]:  # ascending block-row order
+                    p = p + gather(R_ref, e, (Z - eshift[e]) % Z)
+                if live is None:
+                    P_ref[j] = p
+                else:
+                    plgpu.store(P_ref.at[j], p,
+                                mask=jnp.broadcast_to(live[None, :],
+                                                      (Zp, tile)))
+            barrier()
+            return viol
 
-        def latch(viol, it_minus_1):
-            ok_now = (viol == 0).astype(jnp.int32)
-            newly = ok_now * (1 - ok_ref[...])
-            keep = newly[0, :] == 1
-            for j in range(nb):
-                hard = (P_scr[j] < 0).astype(jnp.int8)
-                bits_ref[j] = jnp.where(keep, hard, bits_ref[j])
-            iu_ref[...] = jnp.where(
-                newly == 1, it_minus_1, iu_ref[...]
-            ).astype(jnp.int32)
-            ok_ref[...] = jnp.maximum(ok_ref[...], ok_now)
+        def layered(live):
+            """One layered sweep; `live` (tile,) masks the P writes."""
+            for i in range(mb):
+                es = row_edges[i]
+                qs = [gather(P_ref, ecol[e], eshift[e]) - R_ref[e]
+                      for e in es]
+                for e, q, r_new in zip(es, qs,
+                                       cn_update(qs, f_alpha, f_beta)):
+                    p_new = q + r_new
+                    if live is None and eshift[e] == 0:
+                        P_ref[ecol[e]] = p_new
+                    else:
+                        mask = (jnp.broadcast_to(live[None, :], (Zp, tile))
+                                if live is not None else None)
+                        plgpu.store(P_ref.at[ecol[e], rows_at(eshift[e]),
+                                             col], p_new, mask=mask)
+                    R_ref[e] = r_new
+                barrier()
 
-        def body(it, _):
-            viol = cn_pass()
-            if early_stop:
-                latch(viol, it - 1)
-            vn_pass()
-            return 0
-
+        done0 = jnp.zeros((tile,), jnp.int32)
+        iu0 = jnp.full((tile,), iters, jnp.int32)
         if not early_stop:
-            jax.lax.fori_loop(1, iters + 1, body, 0)
+            def body(_, c):
+                if schedule == "flooding":
+                    flooding(None)
+                else:
+                    layered(None)
+                return c
+
+            jax.lax.fori_loop(0, iters, body, 0)
+            ok_ref[...] = jnp.where(syndrome() == 0, 1, 0)
+            iu_ref[...] = iu0
+            return
+
+        def cond(c):
+            it, done, _ = c
+            return (it <= iters) & (jnp.min(done) == 0)
+
+        if schedule == "flooding":
+            # iteration `it` checks the posterior of iteration it-1 (it=1
+            # checks the channel decision: iters_used 0)
+            def body(c):
+                it, done, iu = c
+                state = {}
+
+                def active(viol):
+                    newly = (done == 0) & (viol == 0)
+                    state["newly"] = newly
+                    return (done == 0) & ~newly
+
+                flooding(active)
+                newly = state["newly"]
+                return (it + 1, jnp.where(newly, 1, done),
+                        jnp.where(newly, it - 1, iu))
+
+            _, done, iu = jax.lax.while_loop(
+                cond, body, (jnp.int32(1), done0, iu0))
+            # the last posterior still needs its own check
+            done = jnp.where(syndrome() == 0, 1, done)
         else:
-            g = max(1, exit_block)
-            n_blocks, rem = divmod(iters, g)
+            done0 = jnp.where(syndrome() == 0, 1, 0)
+            iu0 = jnp.where(done0 == 1, 0, iu0)
+            barrier()
 
-            def block(b, _):
-                done = ok_ref[0, :]
+            def body(c):
+                it, done, iu = c
+                layered(done == 0)
+                newly = (done == 0) & (syndrome() == 0)
+                barrier()
+                return (it + 1, jnp.where(newly, 1, done),
+                        jnp.where(newly, it, iu))
 
-                @pl.when(jnp.sum(done) < batch_tile)
-                def _():
-                    jax.lax.fori_loop(b * g + 1, b * g + g + 1, body, 0)
-
-                return 0
-
-            jax.lax.fori_loop(0, n_blocks, block, 0)
-            if rem:
-                jax.lax.fori_loop(n_blocks * g + 1, iters + 1, body, 0)
-
-        viol = syndrome_violations(P_scr)
-        if early_stop:
-            latch(viol, iters)
-        else:
-            ok_ref[...] = (viol == 0).astype(jnp.int32)
-        done = ok_ref[0, :]
-        for j in range(nb):
-            hard = (P_scr[j] < 0).astype(jnp.int8)
-            if early_stop:
-                bits_ref[j] = jnp.where(done == 1, bits_ref[j], hard)
-            else:
-                bits_ref[j] = hard
-
-    if compressed:
-        chosen_kernel = kernel_compressed
-        scratches = [
-            pltpu.VMEM((nb, Z, batch_tile), dtype),
-            pltpu.VMEM((mb, Z, batch_tile), dtype),
-            pltpu.VMEM((mb, Z, batch_tile), dtype),
-            pltpu.VMEM((mb, Z, batch_tile), jnp.int8),
-            pltpu.VMEM((mb, Z, batch_tile), jnp.int8),
-        ]
-    else:
-        chosen_kernel = kernel
-        scratches = [
-            pltpu.VMEM((nb, Z, batch_tile), dtype),
-            pltpu.VMEM((E, Z, batch_tile), msg_dtype),
-        ]
-        if has_lrot:
-            # rotated (and, under the rescaled contract, per-iteration
-            # rescaled) channel LLRs: written at init, re-read by every
-            # vn_pass (the layered schedule never re-reads L, so it
-            # skips the scratch and rotates straight into P)
-            scratches.append(pltpu.VMEM((nb, Z, batch_tile), dtype))
+            _, done, iu = jax.lax.while_loop(
+                cond, body, (jnp.int32(1), done0, iu0))
+        ok_ref[...] = done
+        iu_ref[...] = iu
 
     @jax.jit
     def decode_fn(llr):
         batch = llr.shape[0]
-        padded = -(-batch // batch_tile) * batch_tile
-        x = llr.astype(dtype)
-        if qz is not None:
-            x = qz(x)  # channel-entry quantization (golden contract step 1)
-        x = x.T  # (n, batch)
+        padded = -(-batch // tile) * tile
+        T = padded // tile
+        x = llr.astype(jnp.float32)
         if padded != batch:
-            # pad lanes with strong "zero codeword" LLRs: they converge
-            # immediately and never hold the early exit back
-            x = jnp.pad(x, ((0, 0), (0, padded - batch)),
+            # pad codewords with strong "zero codeword" LLRs: they
+            # converge at once and never hold the tile's exit back
+            x = jnp.pad(x, ((0, padded - batch), (0, 0)),
                         constant_values=100.0)
-        x = x.reshape(nb, Z, padded)
-        num_tiles = padded // batch_tile
-
-        bits, ok, iu = pl.pallas_call(
-            chosen_kernel,
-            grid=(num_tiles,),
-            in_specs=[
-                pl.BlockSpec(
-                    (nb, Z, batch_tile),
-                    lambda t: (0, 0, t),
-                    memory_space=pltpu.VMEM,
-                ),
-            ],
+        x = jnp.pad(x.reshape(padded, nb, Z), ((0, 0), (0, 0), (0, Zp - Z)))
+        x = x.reshape(T, tile, nb, Zp).transpose(0, 2, 3, 1)
+        P, _, ok, iu = pl.pallas_call(
+            kernel,
+            grid=(T,),
+            in_specs=[pl.BlockSpec((None, nb, Zp, tile),
+                                   lambda t: (t, 0, 0, 0))],
             out_specs=[
-                pl.BlockSpec(
-                    (nb, Z, batch_tile),
-                    lambda t: (0, 0, t),
-                    memory_space=pltpu.VMEM,
-                ),
-                pl.BlockSpec((1, batch_tile), lambda t: (0, t),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, batch_tile), lambda t: (0, t),
-                             memory_space=pltpu.VMEM),
+                pl.BlockSpec((None, nb, Zp, tile), lambda t: (t, 0, 0, 0)),
+                pl.BlockSpec((None, E, Zp, tile), lambda t: (t, 0, 0, 0)),
+                pl.BlockSpec((None, tile), lambda t: (t, 0)),
+                pl.BlockSpec((None, tile), lambda t: (t, 0)),
             ],
             out_shape=[
-                jax.ShapeDtypeStruct((nb, Z, padded), jnp.int8),
-                jax.ShapeDtypeStruct((1, padded), jnp.int32),
-                jax.ShapeDtypeStruct((1, padded), jnp.int32),
+                jax.ShapeDtypeStruct((T, nb, Zp, tile), jnp.float32),
+                jax.ShapeDtypeStruct((T, E, Zp, tile), jnp.float32),
+                jax.ShapeDtypeStruct((T, tile), jnp.int32),
+                jax.ShapeDtypeStruct((T, tile), jnp.int32),
             ],
-            scratch_shapes=scratches,
+            backend="triton",
+            compiler_params=plgpu.CompilerParams(num_warps=1, num_stages=1),
             interpret=interpret,
+            name=f"bp_{algo}_{schedule}",
         )(x)
-
-        bits = bits.reshape(n, padded).T[:batch].astype(jnp.uint8)
-        return bits, ok[0, :batch] > 0, iu[0, :batch]
+        bits = (P[:, :, :Z, :] < 0).transpose(0, 3, 1, 2)
+        bits = bits.reshape(padded, n)[:batch].astype(jnp.uint8)
+        return bits, ok.reshape(padded)[:batch] > 0, iu.reshape(padded)[:batch]
 
     return decode_fn

@@ -1,6 +1,6 @@
 """Pure-jnp reference BP decoders (SURVEY.md M1): correctness before speed.
 
-XLA-compiled (CPU or TPU), no Pallas.  Follows the golden arithmetic
+XLA-compiled (CPU or GPU), no Pallas.  Follows the golden arithmetic
 contract (tpu_ldpc/golden/decoder.py docstring) exactly, so min-sum in
 float32 is bit-exact against the golden model given identical LLRs:
 
@@ -51,9 +51,8 @@ def make_quantizers(bits: int, step: float, post_bits: int):
     as golden's `saturate` computes them.
 
     step MUST be a power of two: |x|/step is then an exact exponent
-    shift in fp32, so NumPy, XLA-CPU, and Mosaic-on-TPU (which may lower
-    f32 division via reciprocal approximation) all round identically
-    (ADVICE r1, low).  Enforced here and in golden.quantize.
+    shift in fp32, so NumPy and XLA on every backend (which may lower
+    f32 division via reciprocal approximation) all round identically.  Enforced here and in golden.quantize.
     """
     m = float((1 << (bits - 1)) - 1)
     step = float(step)
@@ -63,7 +62,7 @@ def make_quantizers(bits: int, step: float, post_bits: int):
         raise ValueError(
             f"quant_step must be a power of two (got {step}): non-pow2 "
             "steps make |x|/step rounding backend-dependent and break "
-            "the golden==jnp==Pallas bit-exact contract on real TPUs"
+            "the golden==jnp bit-exact contract on real devices"
         )
 
     def quantize(x):

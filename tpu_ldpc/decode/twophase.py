@@ -1,10 +1,9 @@
 """Two-phase early-termination decode with straggler compaction.
 
-The fused ET kernel (decode/pallas_bp.py) exits a batch tile only when
-ALL of its 128 lanes converge, so at an operating point like FER 1e-2 a
-single stuck lane forces its whole tile through every iteration:
-P(some lane of 128 fails) ~ 72%, which is why plain ET measured barely
-faster than running all 50 iterations (BENCH_r01: 0.72 vs 0.98 Gb/s).
+A fused ET decoder exits a tile only when ALL of its codewords have
+converged (decode/pallas_bp.py), and the XLA path runs every iteration
+for the whole batch, so at an operating point like FER 1e-2 a few stuck
+codewords hold a whole batch or tile through every iteration.
 
 Fix: decode in two phases.
   1. ET decode with a SHORT iteration budget K on the full batch —
@@ -17,9 +16,8 @@ Fix: decode in two phases.
 Because BP is deterministic, re-decoding a lane from scratch replays
 the identical trajectory, so phase 2's (bits, ok, iters_used) for a
 straggler are exactly what the single-pass ET decoder would have
-produced — the two-phase output is BIT-IDENTICAL to
-build_pallas_decoder(code, iters, early_stop=True) (asserted in
-tests/test_spfast.py::TestTwoPhase).  The only waste is replaying K
+produced — the two-phase output is BIT-IDENTICAL to the single-pass ET
+decoder it is built on (asserted in tests/test_spfast.py::TestTwoPhase).  The only waste is replaying K
 iterations for the ~few-% stragglers.
 
 The compaction budget is static (XLA needs static shapes); if more
@@ -44,7 +42,8 @@ def build_twophase_decoder(
     iters: int = 50,
     phase1_iters: int = 16,
     budget: int = 512,
-    interpret: bool | None = None,
+    impl: str = "pallas",
+    interpret: bool = False,
     report_fallback: bool = False,
     warn_on_fallback: bool = False,
     phase1_alpha: float | None = None,
@@ -54,6 +53,9 @@ def build_twophase_decoder(
     (bits, ok, iters_used), bit-identical to the single-pass ET decoder
     with `iters` iterations.
 
+    impl: the single-pass ET decoder both phases run: 'pallas' (the GPU
+      kernel, decode/pallas_bp.py; `interpret` runs it in the Pallas
+      interpreter) or 'jnp' (the XLA path, decode/reference.py).
     phase1_iters: full-batch iteration budget K (choose a few sigma
       above the operating point's mean convergence iteration).
     budget: compacted phase-2 batch size (static); must be a multiple
@@ -79,12 +81,11 @@ def build_twophase_decoder(
       FER claim for this mode needs its own paired-seed measurement
       (scripts/tpu_hybrid_experiment.py).  None (default) keeps the
       bit-identical contract.
-    decoder_kw: algo/alpha/beta/schedule/quant_*/... forwarded to
-      build_pallas_decoder (early_stop is forced True).
+    decoder_kw: algo/alpha/beta/schedule/quant_*/... forwarded to the
+      single-pass builder (early_stop is forced True).
     """
-    from tpu_ldpc.decode.pallas_bp import build_pallas_decoder
-
-    decoder_kw = dict(decoder_kw, early_stop=True, interpret=interpret)
+    single_pass = _single_pass_builder(impl, interpret)
+    decoder_kw = dict(decoder_kw, early_stop=True)
     # K > iters would let phase 1 run lanes PAST the configured budget:
     # a lane converging at iteration iters < t <= K keeps phase-1's
     # ok=True / iu=t (iu > iters!) instead of the single-pass decoder's
@@ -95,8 +96,8 @@ def build_twophase_decoder(
     phase1_iters = min(int(phase1_iters), int(iters))
     p1_kw = (decoder_kw if phase1_alpha is None
              else dict(decoder_kw, alpha=float(phase1_alpha)))
-    f1 = build_pallas_decoder(code, iters=int(phase1_iters), **p1_kw)
-    f2 = build_pallas_decoder(code, iters=int(iters), **decoder_kw)
+    f1 = single_pass(code, iters=int(phase1_iters), **p1_kw)
+    f2 = single_pass(code, iters=int(iters), **decoder_kw)
     budget = int(budget)
     _warned = {"budget": budget, "fired": False}
 
@@ -139,6 +140,19 @@ def build_twophase_decoder(
     return decode_fn
 
 
+def _single_pass_builder(impl: str, interpret: bool = False):
+    """The builder of the single-pass ET decoder named by `impl`."""
+    if impl == "pallas":
+        from tpu_ldpc.decode.pallas_bp import build_pallas_decoder
+
+        return functools.partial(build_pallas_decoder, interpret=interpret)
+    if impl == "jnp":
+        from tpu_ldpc.decode.reference import build_decoder
+
+        return build_decoder
+    raise ValueError(f"impl must be 'pallas' or 'jnp', not {impl!r}")
+
+
 def _warn_once(n_unconv, state) -> None:
     import warnings
 
@@ -156,6 +170,7 @@ def _warn_once(n_unconv, state) -> None:
 
 def tune_phase1_iters(code: LdpcCode, ebn0_db: float, batch: int = 4096,
                       iters: int = 50, seed: int = 0, margin: float = 2.0,
+                      impl: str = "pallas", interpret: bool = False,
                       **decoder_kw):
     """Pick (phase1_iters, budget) from the MEASURED iteration
     distribution at an operating point (VERDICT r2 #3: derive the
@@ -164,8 +179,8 @@ def tune_phase1_iters(code: LdpcCode, ebn0_db: float, batch: int = 4096,
     Decodes `batch` pivot-encoded frames at `ebn0_db` with the plain ET
     decoder once, builds the straggler-count curve survivors[K]
     (#lanes needing more than K iterations), sizes the phase-2 budget
-    at each K as `margin`x the observed stragglers rounded up to the
-    128-lane batch tile, and picks the K minimizing the cost model
+    at each K as `margin`x the observed stragglers rounded up to a
+    multiple of 128, and picks the K minimizing the cost model
     K*batch + iters*budget(K) (phase-1 work + phase-2 work; ET inside
     each phase only makes both terms smaller).  The margin absorbs
     batch-to-batch straggler variance so the full-batch fallback stays
@@ -173,21 +188,17 @@ def tune_phase1_iters(code: LdpcCode, ebn0_db: float, batch: int = 4096,
 
     The model is a PLANNER, not an oracle: it ignores per-tile ET exits
     inside each phase, so measured throughput can prefer a neighboring
-    K (judged code at 2 dB, flooding-50: model picked K=20, measured
-    best K=16 by ~10%; layered-25: model's K=9/768 measured best, and
-    K=8/512 collapsed 2.2x because stragglers overflow the budget —
-    artifacts/tpu_session_r3_layeredtp.json).  Measure the tuned K and
-    its neighbors once per operating point, as bench.py's committed
-    knobs do.
+    K.  Measure the tuned K and its neighbors once per operating point.
+    impl/interpret pick the single-pass decoder as in
+    build_twophase_decoder.
     """
     import numpy as np
 
     from tpu_ldpc.benchcore import make_timer
-    from tpu_ldpc.decode.pallas_bp import build_pallas_decoder
 
     timer, _ = make_timer(code, batch, ebn0_db=ebn0_db, inner=1, seed=seed)
-    dec = build_pallas_decoder(code, iters=int(iters), early_stop=True,
-                               **decoder_kw)
+    dec = _single_pass_builder(impl, interpret)(
+        code, iters=int(iters), early_stop=True, **decoder_kw)
     key = jax.random.key(seed)
     llr = timer.scale * (
         timer.xj + timer.sig * jax.random.normal(key, timer.xj.shape,

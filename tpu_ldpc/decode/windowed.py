@@ -14,7 +14,7 @@ full-chain flooding decode can match it in FER-per-edge-work (measured
 on L=32/64 chains), so choose windowed decoding for its latency/memory
 contract, not as a throughput trick.
 
-TPU-native formulation.  `make_sc_base_graph` chains (coupling width
+Accelerator-native formulation.  `make_sc_base_graph` chains (coupling width
 w=2) are BANDED: block-row i's support is exactly the 6 consecutive
 block-columns 2(i-2)..2i+1 (clipped at the chain ends).  Padding 4
 virtual block-columns on each side and 2 virtual block-rows on each

@@ -26,10 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
-try:
-    from jax import shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from tpu_ldpc.channel.awgn import awgn_llrs
 from tpu_ldpc.codes.code import LdpcCode

@@ -1,6 +1,6 @@
 """Distributed Monte-Carlo backend (SURVEY.md C12, call stack §3.3).
 
-The TPU-native equivalent of the reference's (absent) NCCL/MPI layer:
+The JAX-native equivalent of the reference's (absent) NCCL/MPI layer:
 `jax.distributed.initialize` for multi-host rendezvous, a 1-D device
 mesh `('mc',)` over all chips, `shard_map` for SPMD placement, and a
 single `psum` reducing the six error counters over ICI/DCN.  No
@@ -26,10 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
-try:  # jax >= 0.7 top-level API; fall back for older versions
-    from jax import shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from tpu_ldpc.codes.code import LdpcCode
 
@@ -133,10 +130,11 @@ def run_ber_sharded(
     `batch` is the per-device batch; each dispatch decodes
     batch * mesh.size * steps_per_call frames across the mesh.
     """
-    from tpu_ldpc.sim.mc import SnrResult, default_steps_per_call
+    from tpu_ldpc import backend
+    from tpu_ldpc.sim.mc import SnrResult
 
     if steps_per_call is None:
-        steps_per_call = default_steps_per_call()
+        steps_per_call = backend.steps_per_call()
     n_dev = mesh.size
     step = build_sharded_mc_step(
         code, cfg, batch, mesh, axis, steps_per_call, adapt, crc

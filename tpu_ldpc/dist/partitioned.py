@@ -3,10 +3,10 @@ long-blocklength / "tensor-parallel" axis (SURVEY.md §2.2 TP/SP rows, §5
 long-context analog, M7).
 
 None of the judged configs need this (every registry code's message
-state fits one chip's VMEM), so this module is the documented scaling
-path plus a working shard_map prototype, tested on the fake CPU mesh.
-Codes whose message state the fused Pallas kernel rejects
-(decode/pallas_bp.py VMEM budget) are routed here automatically when
+state fits the GPU kernel's per-codeword capacity), so this module is
+the documented scaling path plus a working shard_map prototype, tested
+on the fake CPU mesh.  Codes over the fused kernel's capacity
+(decode/pallas_bp.py `fits`) are routed here automatically when
 the caller provides a mesh (decode/api.py), instead of falling back to
 the single-device jnp decoder.
 
@@ -49,10 +49,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
-try:
-    from jax import shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from tpu_ldpc.codes.code import LdpcCode
 from tpu_ldpc.decode.reference import (

@@ -27,7 +27,7 @@ may not span more than one neighbor shard); rejected otherwise.
 
 Message state R never leaves its device: sharding the columns shards
 the O(E·Z·batch) memory, which is the whole point — this is the path
-for codes whose state exceeds one chip's VMEM/HBM.  No judged config
+for codes whose state exceeds one device's memory.  No judged config
 needs it (SURVEY §6 sizing), so like partitioned.py it ships as a
 working jnp prototype exercised on the fake CPU mesh, not a tuned
 Pallas kernel.
@@ -55,10 +55,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
-try:
-    from jax import shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from tpu_ldpc.codes.code import LdpcCode
 from tpu_ldpc.decode.reference import (
@@ -66,6 +63,47 @@ from tpu_ldpc.decode.reference import (
     _cn_sumproduct,
     _cn_sumproduct_fast,
 )
+
+def _row_spans(lay):
+    """{block-row: (leftmost, rightmost) block-column} of non-empty rows."""
+    spans = {}
+    for i in range(lay.mb):
+        es = lay.row_edges(i)
+        if es:
+            cols = [int(lay.edge_col[e]) for e in es]
+            spans[i] = (min(cols), max(cols))
+    return spans
+
+
+def _ring_geometry(code: LdpcCode, n_dev: int):
+    """(block-cols per device, halo, problem): problem is None when the
+    ring can decode `code` over `n_dev` devices, else why not."""
+    nb = code.layout.nb
+    if nb % n_dev:
+        return 0, 0, f"nb={nb} block-columns not divisible by {n_dev} devices"
+    cpd = nb // n_dev                      # block-cols per device
+    # needed halo is OWNER-aligned (the owner of a row is the device
+    # holding its rightmost block-column): each row reads back from its
+    # owner's first column to its leftmost column, not its full raw span
+    halo = max((cmax // cpd * cpd - cmin
+                for cmin, cmax in _row_spans(code.layout).values()),
+               default=0)
+    # halo=0 (block-diagonal base) would make the `P_loc[-halo:]` slice
+    # degenerate (-0 == whole array); one spare column costs nothing
+    halo = max(halo, 1)
+    if halo > cpd:
+        return cpd, halo, (
+            f"band width {halo} exceeds the {cpd} block-cols per device "
+            f"(nb={nb}, {n_dev} devices): a single-hop neighbor halo "
+            "cannot span multiple shards — use fewer devices or the "
+            "row-striped partitioned decoder")
+    return cpd, halo, None
+
+
+def ring_supports(code: LdpcCode, n_dev: int) -> bool:
+    """Whether build_ring_decoder accepts `code` over `n_dev` devices."""
+    return _ring_geometry(code, n_dev)[2] is None
+
 
 @functools.lru_cache(maxsize=16)
 def build_ring_decoder(
@@ -88,34 +126,11 @@ def build_ring_decoder(
     lay = code.layout
     Z, mb, nb = lay.Z, lay.mb, lay.nb
     n_dev = mesh.shape[axis]
-    if nb % n_dev:
-        raise ValueError(
-            f"nb={nb} block-columns not divisible by {n_dev} devices"
-        )
-    cpd = nb // n_dev                      # block-cols per device
-    # measured band: each row's support width, and its owner device
-    # (the device holding its rightmost block-column)
-    row_cols = {}
-    for i in range(mb):
-        es = lay.row_edges(i)
-        if es:
-            cols = [int(lay.edge_col[e]) for e in es]
-            row_cols[i] = (min(cols), max(cols))
-    # needed halo is OWNER-aligned: each row reads back from its owner's
-    # first column (j0) to its leftmost column, not its full raw span
+    cpd, halo, problem = _ring_geometry(code, n_dev)
+    if problem:
+        raise ValueError(problem)
+    row_cols = _row_spans(lay)
     owner = {i: cmax // cpd for i, (_, cmax) in row_cols.items()}
-    halo = max((owner[i] * cpd - cmin
-                for i, (cmin, _) in row_cols.items()), default=0)
-    # halo=0 (block-diagonal base) would make the `P_loc[-halo:]` slice
-    # degenerate (-0 == whole array); one spare column costs nothing
-    halo = max(halo, 1)
-    if halo > cpd:
-        raise ValueError(
-            f"band width {halo} exceeds the {cpd} block-cols per device "
-            f"(nb={nb}, {n_dev} devices): a single-hop neighbor halo "
-            "cannot span multiple shards — use fewer devices or the "
-            "row-striped partitioned decoder"
-        )
     cn_update = {
         "minsum": _cn_minsum,
         "sumproduct": _cn_sumproduct,

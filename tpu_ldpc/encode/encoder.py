@@ -1,9 +1,11 @@
 """Device encoders (SURVEY.md C4): two systematic QC encoding paths.
 
 (a) `generator`: dense-generator matmul — parity p = u @ M^T over GF(2),
-    realized as an fp32 matrix product on the MXU followed by mod 2
-    (bit counts < 2^24 are exact in fp32).  This is the TPU-native
-    "circulant-shift matmul" path: big, batched, MXU-shaped.
+    realized as an fp32 matrix product followed by mod 2 (bit counts
+    < 2^24 are exact in fp32).  The product is pinned to
+    Precision.HIGHEST, so no backend may lower it to a reduced-precision
+    (TF32) product; the GPU smoke run (chip_smoke.py) checks it against
+    the golden encoder bit for bit.
 (b) `dual_diagonal`: O(n) back-substitution exploiting the 802.11n-style
     parity structure every registry code is built with (closing weight-3
     column h with shifts (s,0,s) at rows (0, mb//2, mb-1), shift-0 dual
@@ -13,7 +15,7 @@
 (c) `pivot`: general path for arbitrary H — including rank-deficient
     matrices (terminated SC-LDPC chains, imported alist codes) where
     the trailing parity block is not invertible: RREF over GF(2) picks
-    a pivot/information-set split, pivot bits solved by one MXU matmul.
+    a pivot/information-set split, pivot bits solved by one matmul.
     `encode_fn.k` is the TRUE dimension n - rank(H) (>= design k);
     `encode_fn.info_cols` maps info bits to codeword positions.
 
@@ -40,7 +42,8 @@ def build_encoder(code: LdpcCode, method: str = "generator"):
         @jax.jit
         def encode_fn(u):
             uf = u.astype(jnp.float32)
-            p = jnp.dot(uf, MT, preferred_element_type=jnp.float32)
+            p = jnp.dot(uf, MT, preferred_element_type=jnp.float32,
+                        precision=jax.lax.Precision.HIGHEST)
             p = jnp.mod(p, 2.0).astype(jnp.uint8)
             return jnp.concatenate([u.astype(jnp.uint8), p], axis=1)
 
@@ -50,8 +53,9 @@ def build_encoder(code: LdpcCode, method: str = "generator"):
         # General path for ARBITRARY H (alist imports, rank-deficient
         # terminated SC-LDPC chains, ...): row-reduce H, take the
         # non-pivot columns as the information set (true dimension
-        # n - rank >= design k), and solve the pivot bits with one MXU
-        # matmul: RREF row r says c[pivot_r] = sum_{f in free} R[r,f] c_f.
+        # n - rank >= design k), and solve the pivot bits with one
+        # matmul (Precision.HIGHEST, as above): RREF row r says
+        # c[pivot_r] = sum_{f in free} R[r,f] c_f.
         # Systematic in the free positions, not necessarily the leading
         # k columns; encode_fn.k / .info_cols expose the mapping.
         import scipy.sparse as sp
@@ -74,7 +78,8 @@ def build_encoder(code: LdpcCode, method: str = "generator"):
         def _pivot_encode(u):
             uf = u.astype(jnp.float32)
             p = jnp.mod(
-                jnp.dot(uf, MT, preferred_element_type=jnp.float32), 2.0
+                jnp.dot(uf, MT, preferred_element_type=jnp.float32,
+                        precision=jax.lax.Precision.HIGHEST), 2.0
             ).astype(jnp.uint8)
             c = jnp.zeros((u.shape[0], n), jnp.uint8)
             c = c.at[:, free_j].set(u.astype(jnp.uint8))

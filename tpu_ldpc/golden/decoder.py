@@ -85,8 +85,8 @@ def quantize(x: np.ndarray, bits: int, step: float, dtype=np.float32):
     """Q_{bits,step}(x) per the contract above (round + saturate).
 
     step must be a power of two: |x|/step is then an exact fp32
-    exponent shift, so every backend (NumPy / XLA-CPU / Mosaic, which
-    may lower division via reciprocal approximation) rounds the +0.5
+    exponent shift, so every backend (NumPy / XLA, which may lower
+    division via reciprocal approximation) rounds the +0.5
     identically.  Mirrors decode.reference.make_quantizers.
     """
     import math
@@ -154,8 +154,7 @@ def syndrome_ok(H, bits: np.ndarray) -> np.ndarray:
 # sumproduct-fast: the lambda-min2 approximation of the sum-product CN
 # update, built ONLY from exact fp32 ops (min/max/add/mul) so the golden
 # == jnp == Pallas bit-exact contract extends to it (exact SP's
-# tanh/log transcendentals can never be bit-pinned across backends, and
-# measured 0.67 Gb/s vs min-sum's 0.98 on the v5e — VERDICT r1 #2).
+# tanh/log transcendentals can never be bit-pinned across backends).
 #
 # Contract (fp32 ops in EXACTLY this order in every implementation):
 #   ctilde(x) = max(max(max(0.6931472 - 0.5*x, 0.57 - 0.25*x),
@@ -291,7 +290,6 @@ def decode(
     quant_bits: int | None = None,
     quant_step: float = 0.5,
     quant_post_bits: int | None = None,
-    rescaled: bool = False,
 ):
     """Decode a batch of LLR vectors with the golden BP decoder.
 
@@ -311,27 +309,6 @@ def decode(
       quant_bits / quant_step / quant_post_bits: fixed-point emulation
         mode (min-sum only) — see the module-level quantization contract.
         None (default) = full floating point.
-      rescaled: normalized min-sum computed in per-iteration units
-        alpha^-k (min-sum-rescaled contract).  min/abs/compare are
-        homogeneous under positive scaling, so in EXACT arithmetic this
-        is identical to standard normalized min-sum — but it removes the
-        per-edge alpha multiply from the CN update (the measured VPU
-        issue-rate bottleneck of the fused TPU kernel, DESIGN.md §8):
-          inv      = dtype(1)/dtype(alpha)       # rounded once
-          Ls_0     = L
-          iter k:    Ls_k = dtype(Ls_{k-1} * inv)  # elementwise
-          CN:        R'_k = cn_update(q', alpha=1) # NO alpha multiply
-          VN:        P'_k = Ls_k + sum R'_k
-        (E per-edge multiplies per iteration become nb per-column
-        multiplies by a constant.)  Hard decisions, syndrome checks and
-        iters_used are sign-based and signs are scale-invariant, so
-        outputs agree with the standard contract up to fp-rounding
-        differences (statistically invisible: see tests/test_pallas.py
-        and artifacts/rescaled_fer.json).  Bit-exactness holds WITHIN
-        the rescaled contract: this golden path == Pallas rescaled
-        kernel.  Flooding min-sum with beta=0 and no quantization only;
-        magnitudes grow by alpha^-iters, so iters is capped at 200
-        (alpha=0.75: scale 1e25, far inside fp32 range).
 
     Returns:
       bits: (batch, n) uint8 hard decisions.
@@ -342,14 +319,6 @@ def decode(
         raise ValueError(f"unknown schedule {schedule!r}")
     if algo not in ("minsum", "sumproduct", "sumproduct-fast"):
         raise ValueError(f"unknown algo {algo!r}")
-    if rescaled and (
-        algo != "minsum" or schedule != "flooding" or beta != 0.0
-        or quant_bits is not None or iters > 200
-    ):
-        raise ValueError(
-            "rescaled decoding requires algo='minsum', schedule='flooding',"
-            " beta=0, no quantization and iters <= 200"
-        )
     quant = None
     if quant_bits is not None:
         if algo != "minsum":
@@ -389,21 +358,13 @@ def decode(
             continue
 
         converged = False
-        inv = dtype(dtype(1.0) / dtype(alpha))
-        Ls = L.copy()
         for it in range(1, iters + 1):
             if schedule == "flooding":
                 Q = P[g.cols] - R
                 if quant is not None:
                     Q = saturate(Q, quant[0], quant[1], dtype)
-                if rescaled:
-                    # per-iteration unit change: alpha^-it (see docstring)
-                    R = _cn_pass(Q, g, algo, 1.0, 0.0, dtype, None)
-                    Ls = (Ls * inv).astype(dtype)
-                    P = _vn_pass(Ls, R, g, dtype)
-                else:
-                    R = _cn_pass(Q, g, algo, alpha, beta, dtype, quant)
-                    P = _vn_pass(L, R, g, dtype)
+                R = _cn_pass(Q, g, algo, alpha, beta, dtype, quant)
+                P = _vn_pass(L, R, g, dtype)
                 if quant is not None:
                     P = saturate(P, post[0], post[1], dtype)
             else:  # layered: rows sequentially, posterior updated in place

@@ -1,5 +1,5 @@
 """`python -m tpu_ldpc.sim` — alias for the sweep CLI (SURVEY.md L5)."""
 
-from tpu_ldpc.cli.sim import main
+from tpu_ldpc.cli.sim import entry
 
-main()
+entry()
